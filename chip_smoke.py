@@ -7,19 +7,30 @@ Phases, each printed as it runs:
 
   1. Environment: the card's name and power limit, torch and CUDA
      versions, and the build of every CUDA kernel from ``src/``.
-  2. Kernels against their plain PyTorch versions on the card, over
-     AND2/AND3/AND4/OR/ANDNOT/nested programs, row widths 2..600 and
-     ragged tuple counts up to ~1M (integers: equality required), then
-     each kernel timed at the main path's shape beside its byte bound.
-  3. The main path: a scale-21 Kronecker graph (2.1M vertices, 31.8M
+  2. Kernels against their plain PyTorch versions on the card (integers:
+     equality required). The popcount kernels over AND2/AND3/AND4/OR/
+     ANDNOT/nested programs, row widths 2..600 and ragged tuple counts up
+     to ~1M; the MinHash counts over k in {1, 4, 7, 31, 33, 128, 256},
+     ragged row counts up to ~1M and 0, with all-sentinel rows, negative
+     ids and duplicates. Then each kernel timed at the main path's shape
+     beside its bound.
+  3. The Bloom path: a scale-21 Kronecker graph (2.1M vertices, 31.8M
      edges), ``session(g, "bf", storage_budget=1.0)`` on the card,
      ``triangle_count()`` and ``local_clustering()``. The launch counts are
      zeroed just before and read just after; per-edge popcounts of a fixed
      1M-edge sample and the TC are held against the plain path on the card.
-  4. Where the time goes: a warm pass and a sketch build under
-     torch.profiler (device busy time, idle share, top kernels).
+  3b. The MinHash path on the same graph: ``session(g, "kh", ...)`` with
+     TC, LCC, ``jarvis_patrick("jaccard", 0.05)`` and
+     ``edge_similarity("jaccard")``, then ``session(g, "1h", ...,
+     variant="naive")`` with TC; each with its launch counts zeroed just
+     before and read just after, its kernel's match counts on the 1M-edge
+     sample and its TC held against the plain path.
+  4. Where the time goes: a warm Bloom pass, a Bloom sketch build and a
+     warm k-Hash pass under torch.profiler (device busy time, idle share,
+     top kernels).
   5. A scale-12 graph against an independent numpy reference of the same
-     estimator (sketch words identical; TC and LCC within rtol 1e-4).
+     definitions: Bloom words, k-Hash, 1-Hash and KMV sketches identical;
+     TC (and the Bloom LCC) within rtol 1e-4 of the numpy estimators.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -94,8 +105,20 @@ def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_kernels(torch, setexpr, fused_expr, ref):
-    """Phase 2: parity on many shapes, then timing at the main path's shape."""
+def make_flush(torch):
+    """A flush for :func:`time_ms`: a 2 GiB write evicts L2 and keeps the
+    card busy while the host enqueues the timed launches."""
+    scratch = torch.empty(2 << 30, dtype=torch.uint8, device="cuda")
+
+    def flush():
+        scratch.zero_()
+    return flush
+
+
+def phase_kernels(torch, setexpr, fused_expr, ref, flush):
+    """Phase 2, popcount kernels: parity on many shapes, then timing of
+    each form the main path or a reference kernel uses, at the main path's
+    shape."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     u, v, w, x = setexpr.rows(4)
@@ -107,7 +130,9 @@ def phase_kernels(torch, setexpr, fused_expr, ref):
                                                         1_000_003)]
     cases += [(600, T) for T in (1, 999, 70_001)]
     checked = 0
-    max_err = {"fused_gather_popcount": 0, "fused_rows_popcount": 0}
+    # max |kernel - plain| per form and program
+    err = {f"{form}/{name}": 0 for form in ("gather", "rows")
+           for name in programs}
     for W, T in cases:
         data = torch.randint(-2**31, 2**31 - 1, (n, W), dtype=torch.int32,
                              device=dev, generator=gen)
@@ -118,74 +143,140 @@ def phase_kernels(torch, setexpr, fused_expr, ref):
         for name, prog in programs.items():
             got = fused_expr.fused_gather_popcount(data, tuples, prog)
             want = ref.fused_gather_popcount(data, tuples, prog)
-            max_err["fused_gather_popcount"] = max(
-                max_err["fused_gather_popcount"],
-                int((got - want).abs().max()))
+            err[f"gather/{name}"] = max(err[f"gather/{name}"],
+                                        int((got - want).abs().max()))
             require(torch.equal(got, want),
                     f"gather {name} W={W} T={T}: "
                     f"{int((got != want).sum())} tuples differ")
             rows = [data[tuples[:, s].long()] for s in prog.slots]
             got_r = fused_expr.fused_rows_popcount(rows, prog)
             want_r = ref.fused_rows_popcount(rows, prog)
-            max_err["fused_rows_popcount"] = max(
-                max_err["fused_rows_popcount"],
-                int((got_r - want_r).abs().max()))
+            err[f"rows/{name}"] = max(err[f"rows/{name}"],
+                                      int((got_r - want_r).abs().max()))
             require(torch.equal(got_r, want_r),
                     f"rows {name} W={W} T={T}: "
                     f"{int((got_r != want_r).sum())} rows differ")
             checked += 2
         del data, tuples, rows
     torch.cuda.synchronize()
-    print(f"phase 2: kernels equal their plain versions on {checked} cases "
-          f"({len(cases)} shapes x {len(programs)} programs x 2 forms); "
-          f"max_abs_err {max_err}", flush=True)
+    print(f"phase 2: popcount kernels equal their plain versions on "
+          f"{checked} cases ({len(cases)} shapes x {len(programs)} programs "
+          f"x 2 forms); max_abs_err {max(err.values())}", flush=True)
 
     # timing at the main path's shape: scale-21 rows of 32 words, one
-    # 65,536-edge chunk of the AND2 pass
-    n21, W, T, k = 1 << 21, 32, 65_536, 2
+    # 65,536-edge chunk; AND2 is the TC pass, AND3 the 4-clique form
+    n21, W, T = 1 << 21, 32, 65_536
     data = torch.randint(-2**31, 2**31 - 1, (n21, W), dtype=torch.int32,
                          device=dev, generator=gen)
-    tuples = torch.randint(0, n21, (T, k), dtype=torch.int32, device=dev,
+    tuples = torch.randint(0, n21, (T, 3), dtype=torch.int32, device=dev,
                            generator=gen)
-    prog = programs["AND2"]
-    scratch = torch.empty(2 << 30, dtype=torch.uint8, device=dev)
-
-    def flush():
-        scratch.zero_()
-
-    distinct = int(torch.unique(tuples).numel())
-    g_bytes = distinct * W * 4 + T * k * 4 + T * 4
-    g_ops = T * W * (k + 1)                   # k-1 ANDs, a popcount, an add
-    g_bound, g_by = bound_ms(g_bytes, g_ops)
-    g_ms = time_ms(lambda: fused_expr.fused_gather_popcount(data, tuples,
-                                                            prog), flush)
-    g_plain = time_ms(lambda: ref.fused_gather_popcount(data, tuples, prog),
-                      flush)
-    rows = [data[tuples[:, s].long()] for s in prog.slots]
-    r_bytes = k * T * W * 4 + T * 4
-    r_bound, r_by = bound_ms(r_bytes, g_ops)
-    r_ms = time_ms(lambda: fused_expr.fused_rows_popcount(rows, prog), flush)
-    r_plain = time_ms(lambda: ref.fused_rows_popcount(rows, prog), flush)
-    del data, tuples, rows, scratch
+    # row of the table -> (form, program); rows 1-2 are the kernels as PR
+    # 11 timed them, rows 3-6 the reference's bf_intersect kernels, which
+    # are these same forms
+    forms = {"fused_gather_popcount": ("gather", "AND2"),
+             "fused_rows_popcount": ("rows", "AND2"),
+             "bf_intersect_pairs": ("rows", "AND2"),
+             "bf_intersect3_pairs": ("rows", "AND3"),
+             "bf_edge_intersect": ("gather", "AND2"),
+             "bf_edge_intersect3": ("gather", "AND3")}
+    timing = {}
+    for name, (form, pname) in forms.items():
+        prog = programs[pname]
+        k = len(prog.slots)
+        tup = tuples[:, :k].contiguous()
+        ops = T * W * (k + 1)                 # k-1 ANDs, a popcount, an add
+        if form == "gather":
+            nbytes = int(torch.unique(tup).numel()) * W * 4 + T * k * 4 + T * 4
+            ms = time_ms(lambda: fused_expr.fused_gather_popcount(
+                data, tup, prog), flush)
+            plain = time_ms(lambda: ref.fused_gather_popcount(data, tup, prog),
+                            flush)
+        else:
+            rows = [data[tup[:, s].long()] for s in prog.slots]
+            nbytes = k * T * W * 4 + T * 4
+            ms = time_ms(lambda: fused_expr.fused_rows_popcount(rows, prog),
+                         flush)
+            plain = time_ms(lambda: ref.fused_rows_popcount(rows, prog),
+                            flush)
+            del rows
+        bound, by = bound_ms(nbytes, ops)
+        timing[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                            bound_by=by, bytes=nbytes, form=f"{form}/{pname}",
+                            max_abs_err=err[f"{form}/{pname}"])
+        print(f"  {name} ({form}, {pname}): {ms:.4f} ms (plain {plain:.4f} "
+              f"ms, bound {bound:.4f} ms by {by}, {nbytes} bytes, "
+              f"{bound / ms:.1%} of bound) at T={T} W={W}", flush=True)
+    del data, tuples
     torch.cuda.empty_cache()
-    timing = {
-        "fused_gather_popcount": dict(
-            ms=g_ms, plain_ms=g_plain, bound_ms=g_bound, bound_by=g_by,
-            bytes=g_bytes, max_abs_err=max_err["fused_gather_popcount"]),
-        "fused_rows_popcount": dict(
-            ms=r_ms, plain_ms=r_plain, bound_ms=r_bound, bound_by=r_by,
-            bytes=r_bytes, max_abs_err=max_err["fused_rows_popcount"]),
-    }
-    for name, t in timing.items():
-        print(f"  {name}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, "
-              f"bound {t['bound_ms']:.4f} ms by {t['bound_by']}, "
-              f"{t['bytes']} bytes, {t['bound_ms'] / t['ms']:.1%} of bound) "
-              f"at T={T} W={W} k={k}", flush=True)
     return timing
 
 
-def phase_main(torch, np, TE, TG, fused_expr, scale: int):
-    """Phase 3: the port's main path at full size, then its checks."""
+def minhash_rows(torch, gen, e: int, k: int, sentinel: int):
+    """Row pairs drawn from [-40, sentinel + 40): negative ids, pads above
+    the sentinel and duplicates within rows; b copies about half of a's
+    positions (aligned matches), every 13th row of a and of b (offset) is
+    all sentinel."""
+    a = torch.randint(-40, sentinel + 40, (e, k), dtype=torch.int32,
+                      device="cuda", generator=gen)
+    b = torch.randint(-40, sentinel + 40, (e, k), dtype=torch.int32,
+                      device="cuda", generator=gen)
+    b = torch.where(torch.rand((e, k), device="cuda", generator=gen) < 0.5,
+                    a, b)
+    a[::13] = sentinel
+    b[5::13] = sentinel
+    return a, b
+
+
+def phase_minhash_kernels(torch, mh_intersect, ref, flush):
+    """Phase 2, MinHash counts: parity over k and ragged E, then timing at
+    the main path's shape (E = 65,536 row pairs, k = 31)."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    sentinel = 150
+    names = ("mh_intersect_pairs", "khash_match_pairs")
+    err = dict.fromkeys(names, 0)
+    cases = [(k, e) for k in (1, 4, 7, 31, 33)
+             for e in (0, 1, 999, 65_537, 1_000_003)]
+    cases += [(k, e) for k in (128, 256) for e in (0, 1, 999, 70_001)]
+    for k, e in cases:
+        a, b = minhash_rows(torch, gen, e, k, sentinel)
+        for name in names:
+            got = getattr(mh_intersect, name)(a, b, sentinel)
+            want = getattr(ref, name)(a, b, sentinel)
+            require(got.shape == (e,) and got.dtype == torch.int32,
+                    f"{name} k={k} E={e}: output {got.dtype}"
+                    f"{list(got.shape)}")
+            if e:
+                err[name] = max(err[name], int((got - want).abs().max()))
+            require(torch.equal(got, want),
+                    f"{name} k={k} E={e}: {int((got != want).sum())} rows "
+                    "differ from the plain version")
+        del a, b
+    torch.cuda.synchronize()
+    print(f"phase 2: MinHash kernels equal their plain versions on "
+          f"{len(cases) * len(names)} cases ({len(cases)} (k, E) shapes x "
+          f"2 kernels); max_abs_err {err}", flush=True)
+
+    e, k = 65_536, 31
+    a, b = minhash_rows(torch, gen, e, k, sentinel)
+    nbytes = 2 * e * k * 4 + e * 4
+    timing = {}
+    for name, ops in (("mh_intersect_pairs", e * k * k),
+                      ("khash_match_pairs", e * k)):
+        fn = getattr(mh_intersect, name)
+        plain_fn = getattr(ref, name)
+        ms = time_ms(lambda: fn(a, b, sentinel), flush)
+        plain = time_ms(lambda: plain_fn(a, b, sentinel), flush)
+        bound, by = bound_ms(nbytes, ops)
+        timing[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                            bound_by=by, bytes=nbytes, max_abs_err=err[name])
+        print(f"  {name}: {ms:.4f} ms (plain {plain:.4f} ms, bound "
+              f"{bound:.4f} ms by {by}, {nbytes} bytes, {ops} compares, "
+              f"{bound / ms:.1%} of bound) at E={e} k={k}", flush=True)
+    return timing
+
+
+def phase_main(torch, np, TE, TG, kernels, scale: int):
+    """Phase 3: the port's Bloom path at full size, then its checks."""
     t0 = time.perf_counter()
     g = TG.kronecker(scale, 16, seed=1, device="cuda")
     torch.cuda.synchronize()
@@ -194,7 +285,7 @@ def phase_main(torch, np, TE, TG, fused_expr, scale: int):
           f"d_max={g.d_max} generate+CSR {gen_s:.1f} s", flush=True)
 
     torch.cuda.reset_peak_memory_stats()
-    fused_expr.reset_launch_counts()
+    kernels.reset_launch_counts()
     t0 = time.perf_counter()
     sess = TE.session(g, "bf", storage_budget=1.0, device="cuda")
     torch.cuda.synchronize()
@@ -206,7 +297,8 @@ def phase_main(torch, np, TE, TG, fused_expr, scale: int):
     lcc = sess.local_clustering()
     mean_lcc = float(lcc.mean())
     lcc_s = time.perf_counter() - t0
-    launches = dict(fused_expr.LAUNCHES)
+    launches = kernels.launch_counts()
+    forms = dict(kernels.fused_expr.FORM_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
 
     words = sess.sketch.data.shape[1]
@@ -216,11 +308,12 @@ def phase_main(torch, np, TE, TG, fused_expr, scale: int):
           f"LCC {lcc_s:.3f} s; edge_chunk={sess.plan.edge_chunk} "
           f"degree_order={sess.plan.degree_order}", flush=True)
     print(f"  TC={tc:.6g} mean LCC={mean_lcc:.6g} launches={launches} "
-          f"peak device memory {peak} bytes", flush=True)
+          f"by form={forms} peak device memory {peak} bytes", flush=True)
     require(sess.plan.use_kernel, "the main path must use the kernels")
-    require(launches["fused_gather_popcount"] == chunks,
+    require(launches["fused_gather_popcount"] == chunks
+            and forms.get("gather/and2") == chunks,
             f"gather kernel launched {launches['fused_gather_popcount']} "
-            f"times, expected one per chunk ({chunks})")
+            f"times ({forms}), expected one AND2 launch per chunk ({chunks})")
     require(math.isfinite(tc) and tc > 0, f"TC {tc} not finite and positive")
     require(lcc.shape == (g.n,) and bool(torch.isfinite(lcc).all()),
             "LCC must be finite float32[n]")
@@ -233,9 +326,7 @@ def phase_main(torch, np, TE, TG, fused_expr, scale: int):
     print(f"  warm pass (TC, second session over the same sketch) "
           f"{warm_pass_s:.3f} s = {g.m / warm_pass_s:.4g} edges/s", flush=True)
     plain_plan = sess.plan.with_(use_kernel=False)
-    sample = torch.from_numpy(np.random.default_rng(0).choice(
-        g.m, size=min(g.m, 1_000_000), replace=False)).to("cuda")
-    edges = g.edges[sample]
+    edges = g.edges[edge_sample(torch, np, g)]
     got = TE.tuple_cardinality_ones(sess.sketch, edges, sess.plan)
     want = TE.tuple_cardinality_ones(sess.sketch, edges, plain_plan)
     require(torch.equal(got, want),
@@ -250,18 +341,123 @@ def phase_main(torch, np, TE, TG, fused_expr, scale: int):
     print(f"  {edges.shape[0]}-edge popcount sample equal to the plain "
           f"path; plain-path "
           f"TC={tc_plain:.6g} (pass {plain_pass_s:.3f} s)", flush=True)
-    return g, sess, dict(launches=launches, chunks=chunks, n=g.n, m=g.m,
+    return g, sess, dict(launches=launches, forms=forms, chunks=chunks,
+                n=g.n, m=g.m,
                 gen_s=gen_s, build_s=build_s, pass_s=pass_s, lcc_s=lcc_s,
                 warm_pass_s=warm_pass_s,
                 plain_pass_s=plain_pass_s, tc=tc, mean_lcc=mean_lcc,
                 peak_bytes=peak, words=words)
 
 
-def phase_breakdown(torch, TE, sketches, g, sess, warm_pass_s, build_s):
-    """Phase 4: where the time goes. A warm pass (TC + LCC) and a sketch
-    build run under torch.profiler; device busy time is the sum of their
-    kernels' device time, and the idle share is taken against the
-    unprofiled wall time of phase 3."""
+def edge_sample(torch, np, g):
+    """Indices of a fixed 1M-edge sample of ``g.edges`` (seed 0)."""
+    return torch.from_numpy(np.random.default_rng(0).choice(
+        g.m, size=min(g.m, 1_000_000), replace=False)).to("cuda")
+
+
+def phase_minhash(torch, np, TE, kernels, g, chunks: int):
+    """Phase 3b: the MinHash path on the scale-21 graph of phase 3."""
+    from repro_torch.kernels import mh_intersect, ref
+    from repro_torch.obs.metrics import REGISTRY
+
+    sample = edge_sample(torch, np, g)
+    u, v = (g.edges[sample, c].long() for c in (0, 1))
+    results, sessions = {}, {}
+    for kind, kw, kernel in (("kh", {}, "khash_match_pairs"),
+                             ("1h", {"variant": "naive"},
+                              "mh_intersect_pairs")):
+        label = kind + ("-naive" if kw else "")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        sess = TE.session(g, kind, storage_budget=1.0, device="cuda", **kw)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tc = float(sess.triangle_count())
+        pass_s = time.perf_counter() - t0
+        r = dict(build_s=build_s, pass_s=pass_s, tc=tc, k=sess.sketch.k,
+                 sketch_bytes=sess.stats()["sketch_bytes"])
+        if kind == "kh":
+            t0 = time.perf_counter()
+            lcc = sess.local_clustering()
+            r["mean_lcc"] = float(lcc.mean())
+            r["lcc_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            labels, num = sess.jarvis_patrick("jaccard", 0.05)
+            r["clusters"] = int(num)
+            r["jp_s"] = time.perf_counter() - t0
+            r["jp_iterations"] = int(
+                REGISTRY.gauge("cluster_cc_iterations").value)
+            t0 = time.perf_counter()
+            sim = sess.edge_similarity("jaccard")
+            r["mean_jaccard"] = float(sim.mean())
+            r["sim_s"] = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        r["peak_bytes"] = torch.cuda.max_memory_allocated()
+        r["launches"] = launches
+        print(f"phase 3b: {label}: k={r['k']} sketch={r['sketch_bytes']} "
+              f"bytes build {build_s:.3f} s; pass (TC) {pass_s:.3f} s; "
+              f"TC={tc:.6g}; launches={launches}; peak device memory "
+              f"{r['peak_bytes']} bytes", flush=True)
+        if kind == "kh":
+            print(f"  LCC mean {r['mean_lcc']:.6g} ({r['lcc_s']:.3f} s); "
+                  f"Jarvis-Patrick (jaccard >= 0.05): {r['clusters']} "
+                  f"clusters, {r['jp_iterations']} iterations "
+                  f"({r['jp_s']:.3f} s); edge Jaccard mean "
+                  f"{r['mean_jaccard']:.6g} ({r['sim_s']:.3f} s)",
+                  flush=True)
+            require(lcc.shape == (g.n,) and bool(torch.isfinite(lcc).all())
+                    and bool((lcc >= 0).all()),
+                    "kh LCC must be finite, non-negative float32[n]")
+            require(labels.shape == (g.n,) and 1 <= r["clusters"] <= g.n
+                    and bool((labels <= torch.arange(
+                        g.n, device="cuda")).all()),
+                    "Jarvis-Patrick labels must be int32[n] minima")
+            require(sim.shape == (g.m,) and bool(torch.isfinite(sim).all())
+                    and bool(((sim >= 0) & (sim <= 1)).all()),
+                    "edge Jaccard must lie in [0, 1]")
+        require(sess.plan.use_kernel, f"the {label} path must use the kernels")
+        require(launches[kernel] == chunks
+                and sum(launches.values()) == chunks,
+                f"{label}: launches {launches}, expected {chunks} of {kernel} "
+                "and no other")
+        require(math.isfinite(tc) and tc > 0, f"{label} TC {tc}")
+
+        # the runs below launch kernels too; they are not counted
+        t0 = time.perf_counter()
+        float(TE.MiningSession(g, sess.sketch, sess.plan).triangle_count())
+        r["warm_pass_s"] = time.perf_counter() - t0
+        data, n = sess.sketch.data, sess.sketch.n
+        ru, rv = data.index_select(0, u), data.index_select(0, v)
+        got = getattr(mh_intersect, kernel)(ru, rv, n)
+        want = getattr(ref, kernel)(ru, rv, n)
+        require(torch.equal(got, want),
+                f"{label}: {int((got != want).sum())} of {u.numel()} sampled "
+                "edges' match counts differ from the plain version")
+        t0 = time.perf_counter()
+        tc_plain = float(TE.MiningSession(
+            g, sess.sketch, sess.plan.with_(use_kernel=False)
+        ).triangle_count())
+        r["plain_pass_s"] = time.perf_counter() - t0
+        require(math.isclose(tc, tc_plain, rel_tol=1e-4),
+                f"{label} TC {tc} vs plain-path TC {tc_plain}")
+        print(f"  warm pass {r['warm_pass_s']:.3f} s = "
+              f"{g.m / r['warm_pass_s']:.4g} edges/s; {u.numel()}-edge "
+              f"match-count sample equal to the plain version; plain-path "
+              f"TC={tc_plain:.6g} (pass {r['plain_pass_s']:.3f} s)",
+              flush=True)
+        results[label], sessions[label] = r, sess
+    return results, sessions
+
+
+def phase_breakdown(torch, TE, sketches, g, sess, warm_pass_s, build_s,
+                    kh_sess, kh_warm_pass_s):
+    """Phase 4: where the time goes. A warm Bloom pass (TC + LCC), a Bloom
+    sketch build and a warm k-Hash pass (TC) run under torch.profiler;
+    device busy time is the sum of their kernels' device time, and the
+    idle share is taken against the unprofiled wall time of phases 3/3b."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -290,7 +486,9 @@ def phase_breakdown(torch, TE, sketches, g, sess, warm_pass_s, build_s):
     pass_busy = run("warm TC pass + LCC", warm_pass, warm_pass_s)
     build_busy = run("sketch build", lambda: sketches.build(
         g, "bf", storage_budget=1.0), build_s)
-    return pass_busy, build_busy
+    kh_busy = run("warm k-Hash TC pass", lambda: float(TE.MiningSession(
+        g, kh_sess.sketch, kh_sess.plan).triangle_count()), kh_warm_pass_s)
+    return pass_busy, build_busy, kh_busy
 
 
 def phase_reference(torch, np, TE, TG, sketches):
@@ -324,6 +522,92 @@ def phase_reference(torch, np, TE, TG, sketches):
     exact = float(torch.trace(a @ a @ a)) / 6
     print(f"phase 5: scale 12 TC={tc:.6g} numpy={tc_ref:.6g} exact={exact:.0f} "
           f"(estimate rel err {abs(tc - exact) / exact:.4f})", flush=True)
+    return g, exact
+
+
+_GOLDEN = 0x9E3779B9
+_PAD_HASH = 0xFFFFFFFF
+
+
+def numpy_minhash(np, hash_u32, indptr, indices, n: int, k: int, d_max: int,
+                  seed: int = 0):
+    """k-Hash, 1-Hash and KMV sketches built row by row in numpy from the
+    definitions: per hash function the neighbour of least hash (smallest
+    id on ties); the k neighbours of least hash, ties by id, a hash of
+    all ones read as a pad; the k least hash values mapped to (0, 1]. The
+    last two keep min(k, d_max) columns, as the reference does."""
+    width = min(k, d_max)
+    kh = np.full((n, k), n, np.int32)
+    oh = np.full((n, width), n, np.int32)
+    kmv = np.full((n, width), 2.0, np.float32)
+    fam = np.stack([hash_u32(indices, (i + seed * _GOLDEN) & 0xFFFFFFFF)
+                    for i in range(k)], axis=1)
+    h1 = hash_u32(indices, seed)
+    unit = (h1.astype(np.float32) + np.float32(1.0)) * np.float32(2.0 ** -32)
+    for x in range(n):
+        lo, hi = int(indptr[x]), int(indptr[x + 1])
+        if lo == hi:
+            continue
+        nb = indices[lo:hi]
+        kh[x] = nb[np.argmin(fam[lo:hi], axis=0)]
+        order = np.argsort(h1[lo:hi], kind="stable")[:width]
+        oh[x, :order.size] = np.where(h1[lo:hi][order] == _PAD_HASH, n,
+                                      nb[order])
+        vals = np.sort(unit[lo:hi])[:width]
+        kmv[x, :vals.size] = vals
+    return kh, oh, kmv
+
+
+def numpy_kmv_size(np, rows):
+    filled = (rows < 2.0).sum(axis=1)
+    kmax = np.where(rows < 2.0, rows, 0.0).max(axis=1)
+    est = (filled - 1.0) / np.maximum(kmax, 1e-20)
+    return np.where(filled >= rows.shape[1], est, filled)
+
+
+def phase_reference_minhash(torch, np, TE, g, exact: float):
+    """Phase 5, MinHash and KMV: sketches equal to the numpy build, TC
+    within rtol 1e-4 of the numpy estimators (1-Hash: the naive variant,
+    the kernel path)."""
+    from repro_torch.core.hashing import np_hash_u32
+
+    indptr, indices = g.indptr.cpu().numpy(), g.indices.cpu().numpy()
+    e = g.edges.cpu().numpy()
+    du = g.deg.cpu().numpy()[e[:, 0]].astype(np.float64)
+    dv = g.deg.cpu().numpy()[e[:, 1]].astype(np.float64)
+    k = TE.session(g, "kh", storage_budget=1.0, device="cuda").sketch.k
+    kh, oh, kmv = numpy_minhash(np, np_hash_u32, indptr, indices, g.n, k,
+                                g.d_max)
+    n = g.n
+    for kind, kw, want in (("kh", {}, kh), ("1h", {"variant": "naive"}, oh),
+                           ("kmv", {}, kmv)):
+        sess = TE.session(g, kind, storage_budget=1.0, device="cuda", **kw)
+        got = sess.sketch.data.cpu().numpy()
+        require(got.dtype == want.dtype and np.array_equal(got, want),
+                f"scale-12 {kind} sketch differs from the numpy build")
+        a, b = want[e[:, 0]], want[e[:, 1]]
+        if kind == "kh":
+            j = ((a == b) & (a < n)).sum(axis=1) / a.shape[1]
+            inter = j / (1 + j) * (du + dv)
+        elif kind == "1h":
+            j = ((a[:, :, None] == b[:, None, :])
+                 & (a[:, :, None] < n)).sum(axis=(1, 2)) / a.shape[1]
+            inter = j / (1 + j) * (du + dv)
+        else:
+            merged = np.sort(np.concatenate([a, b], axis=1), axis=1)
+            dup = np.concatenate([np.zeros((len(e), 1), bool),
+                                  merged[:, 1:] == merged[:, :-1]], axis=1)
+            merged = np.where(dup & (merged < 2.0), 2.0, merged)
+            union = numpy_kmv_size(np, np.sort(merged, axis=1)[:, :a.shape[1]])
+            inter = np.maximum(du + dv - union, 0.0)
+        tc_ref = inter.sum() / 3
+        tc = float(sess.triangle_count())
+        require(math.isclose(tc, tc_ref, rel_tol=1e-4),
+                f"scale-12 {kind} TC {tc} vs numpy {tc_ref}")
+        print(f"phase 5: scale 12 {kind}{'-naive' if kw else ''} (k={k}): "
+              f"sketch equal to the numpy build; TC={tc:.6g} numpy="
+              f"{tc_ref:.6g} (rel err vs exact {abs(tc - exact) / exact:.4f})",
+              flush=True)
 
 
 def main() -> None:
@@ -340,8 +624,9 @@ def main() -> None:
     from repro_torch import engine as TE
     from repro_torch.core import graph as TG
     from repro_torch.core import sketches
+    from repro_torch import kernels
     from repro_torch.engine import setexpr
-    from repro_torch.kernels import _build, fused_expr, ref
+    from repro_torch.kernels import _build, ref
 
     t_start = time.perf_counter()
     smi = smi_line()
@@ -360,31 +645,71 @@ def main() -> None:
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}", flush=True)
 
-    timing = phase_kernels(torch, setexpr, fused_expr, ref)
-    g, sess, main_path = phase_main(torch, np, TE, TG, fused_expr, SCALE)
+    flush = make_flush(torch)
+    timing = phase_kernels(torch, setexpr, kernels.fused_expr, ref, flush)
+    timing.update(phase_minhash_kernels(torch, kernels.mh_intersect, ref,
+                                        flush))
+    del flush
+    torch.cuda.empty_cache()
+    g, sess, main_path = phase_main(torch, np, TE, TG, kernels, SCALE)
+    mh_path, mh_sessions = phase_minhash(torch, np, TE, kernels, g,
+                                         main_path["chunks"])
     phase_breakdown(torch, TE, sketches, g, sess, main_path["warm_pass_s"],
-                    main_path["build_s"])
-    del g, sess
-    phase_reference(torch, np, TE, TG, sketches)
+                    main_path["build_s"], mh_sessions["kh"],
+                    mh_path["kh"]["warm_pass_s"])
+    del g, sess, mh_sessions
+    torch.cuda.empty_cache()
+    g12, exact = phase_reference(torch, np, TE, TG, sketches)
+    phase_reference_minhash(torch, np, TE, g12, exact)
 
     print(f"main path: scale {SCALE} n={main_path['n']} "
           f"m={main_path['m']} words={main_path['words']} "
           f"build {main_path['build_s']:.3f} s pass {main_path['pass_s']:.3f} s "
           f"gather launches {main_path['launches']['fused_gather_popcount']}; "
-          f"total {time.perf_counter() - t_start:.1f} s", flush=True)
-    source = "src/repro_torch/kernels/csrc/fused_expr.cu"
-    replaces = {"fused_gather_popcount": "src/repro/kernels/fused_expr.py:79",
-                "fused_rows_popcount": "src/repro/kernels/fused_expr.py:129"}
-    kernels = [{
+          + "; ".join(f"{label}: k={r['k']} build {r['build_s']:.3f} s pass "
+                      f"{r['pass_s']:.3f} s launches "
+                      f"{max(r['launches'].values())}"
+                      for label, r in mh_path.items())
+          + f"; total {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # each row: the kernel's launches on the path that runs it, each path
+    # counted from zero (rows 3-6: their form's launches on the Bloom path)
+    fused_src = "src/repro_torch/kernels/csrc/fused_expr.cu"
+    mh_src = "src/repro_torch/kernels/csrc/mh_intersect.cu"
+    rows = [
+        ("fused_gather_popcount", fused_src,
+         "src/repro/kernels/fused_expr.py:79",
+         main_path["launches"]["fused_gather_popcount"]),
+        ("fused_rows_popcount", fused_src,
+         "src/repro/kernels/fused_expr.py:129",
+         main_path["launches"]["fused_rows_popcount"]),
+        ("bf_intersect_pairs", fused_src,
+         "src/repro/kernels/bf_intersect.py:66",
+         main_path["forms"].get("rows/and2", 0)),
+        ("bf_intersect3_pairs", fused_src,
+         "src/repro/kernels/bf_intersect.py:98",
+         main_path["forms"].get("rows/and3", 0)),
+        ("bf_edge_intersect", fused_src,
+         "src/repro/kernels/bf_intersect.py:168",
+         main_path["forms"].get("gather/and2", 0)),
+        ("bf_edge_intersect3", fused_src,
+         "src/repro/kernels/bf_intersect.py:219",
+         main_path["forms"].get("gather/and3", 0)),
+        ("mh_intersect_pairs", mh_src, "src/repro/kernels/mh_intersect.py:26",
+         mh_path["1h-naive"]["launches"]["mh_intersect_pairs"]),
+        ("khash_match_pairs", mh_src, "src/repro/kernels/mh_intersect.py:53",
+         mh_path["kh"]["launches"]["khash_match_pairs"]),
+    ]
+    records = [{
         "name": name, "route": "cuda", "source": source,
-        "replaces": replaces[name],
-        "launches": main_path["launches"][name],
-        "max_abs_err": t["max_abs_err"],
-        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": None,
-    } for name, t in timing.items()]
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": timing[name]["max_abs_err"],
+        "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
+        "bound_ms": timing[name]["bound_ms"],
+        "bound_by": timing[name]["bound_by"], "library_ms": None,
+    } for name, source, replaces, launches in rows]
     print(smi)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -27,14 +27,26 @@ def graph_from_numpy(indptr, indices, deg, edges, n: int, m: int, d_max: int,
                  n_edges=int(m), d_max=int(d_max))
 
 
-def sketch_from_numpy(data_u32, kind: str, num_hashes: int, k: int,
+#: the numpy types a reference sketch matrix of each kind may have
+_SKETCH_DTYPES = {"bf": (np.uint32, np.int32), "kh": (np.int32,),
+                  "1h": (np.int32,), "kmv": (np.float32,)}
+
+
+def sketch_from_numpy(data, kind: str, num_hashes: int, k: int,
                       seed: int, n: int,
                       device: DeviceLike = DEFAULT_DEVICE) -> SketchSet:
     """A port ``SketchSet`` from the reference's sketch matrix.
 
-    Bloom words (uint32) are stored as int32 bit patterns.
+    Bloom words (uint32) are stored as int32 bit patterns; k-Hash and
+    1-Hash rows stay int32 and KMV rows float32. Any other type raises.
     """
-    arr = np.ascontiguousarray(data_u32)
+    arr = np.ascontiguousarray(data)
+    if kind not in _SKETCH_DTYPES:
+        raise ValueError(f"unknown sketch kind: {kind}")
+    allowed = _SKETCH_DTYPES[kind]
+    if arr.dtype not in allowed:
+        names = " or ".join(t.__name__ for t in allowed)
+        raise ValueError(f"a {kind!r} sketch must be {names}, got {arr.dtype}")
     if arr.dtype == np.uint32:
         arr = arr.view(np.int32)
     data = torch.from_numpy(arr.copy()).to(resolve_device(device))

@@ -2,9 +2,11 @@
 
 ``make_pair_cardinality_fn(graph, sketch)`` returns a batched function
 pairs[P,2] -> float32[P]: the paper's "plug in PG routines in place of
-exact set intersections" (Listing 6). This slice ports the Bloom branch
-(the AND, limit and OR estimators); the exact baseline and the MinHash
-and KMV kinds come with a later slice.
+exact set intersections" (Listing 6). Every sketch kind is ported: Bloom
+(the AND, limit and OR estimators), k-Hash, 1-Hash (``variant`` "union"
+or "naive") and KMV. ``use_kernel`` routes the Bloom popcounts and the
+MinHash match counts through the CUDA kernels. The exact baseline
+(``sketch=None``) needs ``core/exact.py`` and is not ported yet.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import torch
 
 from . import estimators as est
 from .graph import Graph
-from .sketches import SketchSet
+from .sketches import SketchSet, onehash_values
 
 CardFn = Callable[[torch.Tensor], torch.Tensor]
 
@@ -28,12 +30,36 @@ def make_pair_cardinality_fn(graph: Graph, sketch: Optional[SketchSet] = None,
     if sketch is None:
         raise NotImplementedError(
             "exact intersections (sketch=None) are not ported yet")
-    if sketch.kind != "bf":
-        if sketch.kind in ("kh", "1h", "kmv"):
-            raise NotImplementedError(
-                f"sketch kind {sketch.kind!r} is not ported yet")
+    if sketch.kind == "bf":
+        return _bloom_fn(graph, sketch, use_kernel, estimator, block_e,
+                         block_w)
+    if sketch.kind not in ("kh", "1h", "kmv"):
         raise ValueError(f"unknown sketch kind {sketch.kind}")
 
+    data, deg, n = sketch.data, graph.deg, sketch.n
+
+    def minhash_fn(pairs: torch.Tensor) -> torch.Tensor:
+        """Per-pair MinHash/KMV estimate from the gathered sketch rows."""
+        u, v = pairs[:, 0].long(), pairs[:, 1].long()
+        ru, rv = data.index_select(0, u), data.index_select(0, v)
+        du, dv = deg[u], deg[v]
+        if sketch.kind == "kh":
+            return est.khash_intersection(ru, rv, du, dv, n,
+                                          use_kernel=use_kernel)
+        if sketch.kind == "kmv":
+            return est.kmv_intersection(ru, rv, du, dv)
+        if variant == "naive":
+            return est.onehash_intersection(ru, rv, None, None, du, dv, n,
+                                            "naive", use_kernel=use_kernel)
+        return est.onehash_intersection(
+            ru, rv, onehash_values(ru, n, sketch.seed),
+            onehash_values(rv, n, sketch.seed), du, dv, n, variant)
+    return minhash_fn
+
+
+def _bloom_fn(graph: Graph, sketch: SketchSet, use_kernel: bool,
+              estimator: Optional[str], block_e: int, block_w: int) -> CardFn:
+    """The Bloom branch: one compiled set expression per estimator."""
     # the kernel and the plain path are lowerings of one compiled set
     # expression, so their popcounts, and hence the estimates, are
     # identical; the lazy import keeps core -> engine out of load order

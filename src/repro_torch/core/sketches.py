@@ -1,12 +1,20 @@
 """Probabilistic set representations of vertex neighborhoods (ProbGraph §II-D).
 
-This slice ports the Bloom filter: ``int32[n, words]`` per-vertex rows
-(``B = 32*words`` bits, ``b`` hash functions), stored as int32 bit patterns
-of the reference's uint32 words. The builder reads the CSR arrays, never
-the padded adjacency, so it runs at sizes where ``adj`` cannot exist. Its
-words are bit-identical to ``repro.core.sketches.build_bloom``.
+Representations, as in ``repro.core.sketches``:
 
-The k-Hash, 1-Hash and KMV sketches come with a later slice.
+  * Bloom filter  : int32[n, words]  (B = 32*words bits, b hash functions),
+                    int32 bit patterns of the reference's uint32 words
+  * k-Hash MinHash: int32[n, k]      (argmin element per hash function)
+  * 1-Hash MinHash: int32[n, k]      (elements with the k smallest hashes,
+                                      sorted by hash; sentinel-padded)
+  * KMV           : float32[n, k]    (k smallest hash values in (0, 1];
+                                      pad = 2.0)
+
+The sentinel for a missing element is ``n``. Every builder reads the CSR
+arrays in bounded row chunks, never the padded adjacency, so it runs at
+sizes where ``adj`` cannot exist; its output is array-identical to the
+reference builder's. The CSR keeps each row's neighbours ascending, which
+is what breaks hash ties by element id here as in the reference.
 """
 from __future__ import annotations
 
@@ -16,12 +24,26 @@ import numpy as np
 import torch
 
 from .graph import Graph
-from .hashing import _GOLDEN, _MASK, hash_family, np_hash_u32
+from .hashing import (_GOLDEN, _MASK, hash_family, hash_u32,
+                      hash_unit_interval, np_hash_u32)
+
+#: hash of a missing element (uint32 all-ones; hashes are int64 here)
+PAD_HASH = 0xFFFFFFFF
+#: KMV value of a missing element
+KMV_PAD = 2.0
 
 _SHIFTS = tuple(range(32))
 
 #: bool bits a Bloom build chunk may hold at once (256 MiB)
 _CHUNK_BITS = 1 << 28
+
+#: (entry, hash function) candidates a MinHash/KMV build chunk may hold at
+#: once; each takes a few int64 temporaries, so a chunk stays near 1 GiB
+_CHUNK_CANDIDATES = 1 << 25
+
+#: k-Hash packs (hash, element) into one int64 key; element ids are < 2**31
+_ELEM_SPAN = 1 << 31
+_NO_KEY = (1 << 63) - 1
 
 
 # ----------------------------------------------------------------------------
@@ -38,6 +60,41 @@ def bloom_words_for_budget(n: int, m: int, s: float, min_words: int = 2) -> int:
     words = max(words, min_words)
     words += words % 2
     return words
+
+
+def minhash_k_for_budget(n: int, m: int, s: float, min_k: int = 4) -> int:
+    """k so total MinHash storage ≈ s × CSR storage (Wk bits per vertex)."""
+    csr_words = 2 * m + n + 1
+    k = int(np.floor(s * csr_words / max(n, 1)))
+    return max(min_k, k)
+
+
+# ----------------------------------------------------------------------------
+# CSR row chunks
+# ----------------------------------------------------------------------------
+
+def _row_chunks(indptr: np.ndarray, row_cap: int, entry_cap: int):
+    """(start, stop) row ranges covering the CSR in order: at most
+    ``row_cap`` rows and ``entry_cap`` entries each, except that a row
+    with more entries gets a chunk of its own."""
+    n = indptr.shape[0] - 1
+    start = 0
+    while start < n:
+        stop = min(n, start + row_cap)
+        fit = int(np.searchsorted(indptr, indptr[start] + entry_cap,
+                                  side="right")) - 1
+        stop = max(start + 1, min(stop, fit))
+        yield start, stop
+        start = stop
+
+
+def _entry_rows(indptr: torch.Tensor) -> tuple:
+    """For a CSR slice: (row id of every entry, entry count of every row)."""
+    rows = indptr.numel() - 1
+    counts = (indptr[1:] - indptr[:-1]).to(torch.int64)
+    row = torch.repeat_interleave(
+        torch.arange(rows, device=indptr.device), counts)
+    return row, counts
 
 
 # ----------------------------------------------------------------------------
@@ -80,10 +137,9 @@ def bloom_rows(indptr: torch.Tensor, indices: torch.Tensor, words: int,
     """
     total_bits = words * 32
     rows = indptr.numel() - 1
-    dev = indices.device
-    bits = torch.zeros(rows * total_bits, dtype=torch.bool, device=dev)
-    counts = (indptr[1:] - indptr[:-1]).to(torch.int64)
-    row = torch.repeat_interleave(torch.arange(rows, device=dev), counts)
+    bits = torch.zeros(rows * total_bits, dtype=torch.bool,
+                       device=indices.device)
+    row, _ = _entry_rows(indptr)
     h = hash_family(indices, num_hashes, seed)
     flat = row[:, None] * total_bits + h % total_bits        # [entries, b]
     bits[flat.reshape(-1)] = True
@@ -108,17 +164,11 @@ def build_bloom(graph: Graph, words: int, num_hashes: int = 2, seed: int = 0,
     indptr = graph.indptr.cpu().numpy().astype(np.int64)
     entry_cap = max(1, chunk_bits // (4 * max(num_hashes, 1)))
     row_cap = max(1, chunk_bits // total_bits)
-    start = 0
-    while start < n:
-        stop = min(n, start + row_cap)
-        limit = indptr[start] + entry_cap
-        fit = int(np.searchsorted(indptr, limit, side="right")) - 1
-        stop = max(start + 1, min(stop, fit))
-        ptr = graph.indptr[start:stop + 1]
+    for start, stop in _row_chunks(indptr, row_cap, entry_cap):
         out[start:stop] = bloom_rows(
-            ptr, graph.indices[int(indptr[start]):int(indptr[stop])],
+            graph.indptr[start:stop + 1],
+            graph.indices[int(indptr[start]):int(indptr[stop])],
             words, num_hashes, seed)
-        start = stop
     return out
 
 
@@ -139,10 +189,155 @@ def build_bloom_np(graph: Graph, words: int, num_hashes: int = 2,
     return out
 
 
+# ----------------------------------------------------------------------------
+# MinHash (k-Hash): one argmin per hash function (multiset semantics)
+# ----------------------------------------------------------------------------
+
+def khash_rows(indptr: torch.Tensor, indices: torch.Tensor, n: int, k: int,
+               seed: int = 0) -> torch.Tensor:
+    """k-Hash rows for the vertices of a CSR slice: int32[rows, k].
+
+    ``indptr`` is the slice's row-pointer array, as for :func:`bloom_rows`.
+    Per hash function the row keeps the element of smallest hash, the
+    smallest element among equal hashes (the reference's ``argmin`` over an
+    ascending row): one segmented min over keys ``hash·2³¹ + element``,
+    which stay below 2⁶³. An empty row gives the sentinel ``n``.
+    """
+    row, counts = _entry_rows(indptr)
+    key = hash_family(indices, k, seed) * _ELEM_SPAN
+    key += indices.to(torch.int64)[:, None]
+    best = torch.full((counts.numel(), k), _NO_KEY, dtype=torch.int64,
+                      device=indices.device)
+    best.scatter_reduce_(0, row[:, None].expand(-1, k), key, "amin")
+    elems = torch.remainder(best, _ELEM_SPAN)
+    return torch.where(counts[:, None] > 0, elems, n).to(torch.int32)
+
+
+def _sorted_in_rows(indptr: torch.Tensor, key: torch.Tensor, k: int):
+    """Order a CSR slice's entries by (row, ``key``), ties in CSR order.
+
+    ``key`` is int64 in [0, 2³²). Returns (row, rank, order): entry ``i``
+    of the sorted slice is ``order[i]``; it lies in row ``row[i]`` at
+    position ``rank[i]`` of that row, and only ranks below ``k`` are kept.
+    """
+    row, _ = _entry_rows(indptr)
+    order = torch.sort(row * (1 << 32) + key, stable=True).indices
+    # rows keep their places, so row r's sorted entries still start at
+    # indptr[r] (relative to the slice)
+    starts = (indptr[:-1] - indptr[0]).to(torch.int64)
+    rank = torch.arange(order.numel(), device=key.device) - starts[row]
+    keep = rank < k
+    return row[keep], rank[keep], order[keep]
+
+
+def build_khash(graph: Graph, k: int, seed: int = 0,
+                chunk_candidates: int = _CHUNK_CANDIDATES) -> torch.Tensor:
+    """int32[n, k]: element with the smallest h_i among N_v, per hash fn i.
+
+    Empty neighborhoods yield the sentinel ``n``. A chunk holds at most
+    ``chunk_candidates`` (entry, hash function) pairs.
+    """
+    return _build_rows(graph, k, torch.int32, chunk_candidates, k,
+                       lambda ptr, idx: khash_rows(ptr, idx, graph.n, k,
+                                                   seed))
+
+
+# ----------------------------------------------------------------------------
+# MinHash (1-Hash): k smallest under a single hash function, sorted by hash
+# ----------------------------------------------------------------------------
+
+def onehash_rows(indptr: torch.Tensor, indices: torch.Tensor, n: int, k: int,
+                 seed: int = 0) -> torch.Tensor:
+    """1-Hash rows for the vertices of a CSR slice: int32[rows, k].
+
+    Elements ordered by hash, ties by element id; rows with fewer than k
+    elements are padded with ``n``. As in the reference, an element whose
+    hash is ``PAD_HASH`` is indistinguishable from a pad and becomes ``n``.
+    """
+    h = hash_u32(indices, seed)
+    row, rank, order = _sorted_in_rows(indptr, h, k)
+    out = torch.full((indptr.numel() - 1, k), n, dtype=torch.int32,
+                     device=indices.device)
+    out[row, rank] = torch.where(h[order] == PAD_HASH, n, indices[order])
+    return out
+
+
+def build_1hash(graph: Graph, k: int, seed: int = 0,
+                chunk_candidates: int = _CHUNK_CANDIDATES) -> torch.Tensor:
+    """int32[n, min(k, d_max)]: elements with the k smallest h(x), ascending
+    by hash; rows with d_v < k are sentinel-padded.
+
+    The reference keeps ``[:, :k]`` of its ``d_max``-wide padded rows, so
+    a graph with ``d_max < k`` gets ``d_max`` columns; this keeps that
+    width.
+    """
+    width = min(k, graph.d_max)
+    return _build_rows(graph, width, torch.int32, chunk_candidates, 1,
+                       lambda ptr, idx: onehash_rows(ptr, idx, graph.n,
+                                                     width, seed))
+
+
+def onehash_values(sketch: torch.Tensor, n: int, seed: int = 0
+                   ) -> torch.Tensor:
+    """Hash values of a 1-Hash sketch (int64 holding uint32; pads ->
+    ``PAD_HASH``)."""
+    valid = sketch < n
+    h = hash_u32(torch.where(valid, sketch, 0), seed)
+    return torch.where(valid, h, PAD_HASH)
+
+
+# ----------------------------------------------------------------------------
+# KMV: k smallest hash values mapped to (0, 1]  (paper §IX)
+# ----------------------------------------------------------------------------
+
+def kmv_rows(indptr: torch.Tensor, indices: torch.Tensor, k: int,
+             seed: int = 0) -> torch.Tensor:
+    """KMV rows for the vertices of a CSR slice: float32[rows, k],
+    ascending, padded with ``KMV_PAD``."""
+    h = hash_unit_interval(indices, seed)
+    # positive float32 values order as their bit patterns
+    row, rank, order = _sorted_in_rows(
+        indptr, h.view(torch.int32).to(torch.int64), k)
+    out = torch.full((indptr.numel() - 1, k), KMV_PAD, dtype=torch.float32,
+                     device=indices.device)
+    out[row, rank] = h[order]
+    return out
+
+
+def build_kmv(graph: Graph, k: int, seed: int = 0,
+              chunk_candidates: int = _CHUNK_CANDIDATES) -> torch.Tensor:
+    """float32[n, min(k, d_max)]: k smallest unit-interval hashes,
+    ascending; pad = 2.0 (width as :func:`build_1hash`)."""
+    width = min(k, graph.d_max)
+    return _build_rows(graph, width, torch.float32, chunk_candidates, 1,
+                       lambda ptr, idx: kmv_rows(ptr, idx, width, seed))
+
+
+def _build_rows(graph: Graph, width: int, dtype: torch.dtype,
+                chunk_candidates: int, per_entry: int, rows_fn
+                ) -> torch.Tensor:
+    """Run ``rows_fn(indptr_slice, indices_slice)`` over CSR row chunks of
+    at most ``chunk_candidates`` output slots and entries × ``per_entry``
+    candidates, into a [n, width] matrix on the graph's device."""
+    n = graph.n
+    out = torch.empty((n, width), dtype=dtype, device=graph.device)
+    if n == 0:
+        return out
+    indptr = graph.indptr.cpu().numpy().astype(np.int64)
+    for start, stop in _row_chunks(
+            indptr, max(1, chunk_candidates // max(width, 1)),
+            max(1, chunk_candidates // per_entry)):
+        out[start:stop] = rows_fn(
+            graph.indptr[start:stop + 1],
+            graph.indices[int(indptr[start]):int(indptr[stop])])
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class SketchSet:
     """A named bundle of sketches for one graph (the paper's Listing 6
-    ``ProbGraph(g, KIND, s)``). ``data`` is int32[n, words] for Bloom."""
+    ``ProbGraph(g, KIND, s)``). ``data`` is int32[n, words] for Bloom,
+    int32[n, k] for k-Hash and 1-Hash, float32[n, k] for KMV."""
 
     data: torch.Tensor
     kind: str
@@ -170,6 +365,10 @@ def build(graph: Graph, kind: str, storage_budget: float = 0.25,
                          kind="bf", num_hashes=num_hashes, k=0, seed=seed,
                          n=graph.n)
     if kind in ("kh", "1h", "kmv"):
-        raise NotImplementedError(
-            f"sketch kind {kind!r} is not ported yet; only 'bf' is")
+        kk = k if k is not None else minhash_k_for_budget(
+            graph.n, graph.m, storage_budget)
+        builder = {"kh": build_khash, "1h": build_1hash,
+                   "kmv": build_kmv}[kind]
+        return SketchSet(data=builder(graph, kk, seed), kind=kind,
+                         num_hashes=0, k=kk, seed=seed, n=graph.n)
     raise ValueError(f"unknown sketch kind: {kind}")

@@ -7,12 +7,13 @@
   * ``tuple_cardinality_ones`` / ``triple_cardinality_ones`` — the k-way
     popcount provider over row-index tuples, compiled from the k-way AND
     set expression (``repro_torch.engine.setexpr``).
-  * ``session`` — build the sketch once and run TC and LCC over it and
-    one shared per-edge cardinality pass.
+  * ``session`` — build the sketch once (Bloom, k-Hash, 1-Hash or KMV)
+    and run TC, LCC, Jarvis–Patrick clustering and the cardinality
+    similarities over it and one shared per-edge cardinality pass.
 
-This slice ports what triangle counting and LCC need. Edge sharding
-(``shard_edges=True``), the streaming refresh (``DeviceCarry``) and the
-footprints of the serving tier come with later slices.
+Edge sharding (``shard_edges=True``), the streaming refresh
+(``DeviceCarry``) and the footprints of the serving tier come with later
+slices.
 """
 from __future__ import annotations
 
@@ -121,7 +122,7 @@ def triple_cardinality_ones(sketch: SketchSet, triples: torch.Tensor,
 
 class MiningSession:
     """Amortizes one sketch build and one per-edge cardinality pass across
-    TC and LCC queries on the same graph."""
+    TC, LCC, Jarvis–Patrick and similarity queries on the same graph."""
 
     def __init__(self, graph: Graph, sketch: Optional[SketchSet],
                  plan: EnginePlan):
@@ -157,6 +158,30 @@ class MiningSession:
             self.graph, self.sketch, plan=self.plan,
             edge_cards=self.edge_cardinalities())
 
+    def jarvis_patrick(self, similarity: str = "common",
+                       threshold: float = 2.0):
+        """Jarvis–Patrick clustering ``(labels int32[n], num_clusters)``."""
+        from ..core.algorithms.clustering import jarvis_patrick
+        return jarvis_patrick(self.graph, self.sketch, similarity, threshold,
+                              plan=self.plan,
+                              edge_cards=self.edge_cardinalities())
+
+    def similarity(self, pairs: torch.Tensor, measure: str = "jaccard"
+                   ) -> torch.Tensor:
+        """Similarity scores float32[P] for vertex pairs int32[P, 2]."""
+        from ..core.algorithms.similarity import pair_similarity
+        return pair_similarity(self.graph, pairs, measure, self.sketch,
+                               plan=self.plan)
+
+    def edge_similarity(self, measure: str = "jaccard") -> torch.Tensor:
+        """Similarity scores over graph.edges from the cached shared pass."""
+        from ..core.algorithms.similarity import similarity_from_cardinalities
+        edges = self.graph.edges
+        du = self.graph.deg[edges[:, 0].long()].to(torch.float32)
+        dv = self.graph.deg[edges[:, 1].long()].to(torch.float32)
+        return similarity_from_cardinalities(self.edge_cardinalities(),
+                                             du, dv, measure)
+
     def stats(self) -> dict:
         """Session facts: graph sizes, sketch kind/bytes, JSON-able plan."""
         sk = self.sketch
@@ -177,7 +202,9 @@ def session(graph: Graph, sketch: Optional[SketchSet] | str = "bf",
 
     The graph (and a prebuilt sketch) move to ``device`` first; with no
     CUDA device, the default ``"cuda"`` raises instead of running on the
-    CPU. ``sketch`` may be a prebuilt SketchSet or the kind string "bf".
+    CPU. ``sketch`` may be a prebuilt SketchSet or a kind string ("bf" |
+    "kh" | "1h" | "kmv") to build here; ``None`` (the exact baseline) is
+    not ported yet and raises on the first query.
     """
     dev = resolve_device(device)
     graph = graph.to(dev)

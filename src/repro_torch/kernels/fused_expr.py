@@ -10,7 +10,11 @@ Two forms, the port of ``repro.kernels.fused_expr`` (see
 Dispatch follows the tensors: CUDA tensors launch the kernel, CPU tensors
 run the plain version in :mod:`repro_torch.kernels.ref`. On CUDA a build
 or launch failure raises; nothing falls back. Each launch adds one to
-:data:`LAUNCHES`, so a run can show that it went through the kernels.
+:data:`LAUNCHES`, so a run can show that it went through the kernels, and
+one to :data:`FORM_LAUNCHES` under its form and program (``"gather/and2"``
+is the reference's 2-way gather kernel ``bf_edge_intersect``,
+``"rows/and3"`` its dense ``bf_intersect3_pairs``, ``".../program"`` any
+other expression).
 """
 from __future__ import annotations
 
@@ -25,6 +29,8 @@ from .program import MAX_LEAVES, Program
 #: kernel launches per wrapper since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {"fused_gather_popcount": 0,
                             "fused_rows_popcount": 0}
+#: the same launches by form and program (see the module docstring)
+FORM_LAUNCHES: Dict[str, int] = {}
 
 _VOIDP = ctypes.c_void_p
 
@@ -33,6 +39,13 @@ def reset_launch_counts() -> None:
     """Set every wrapper's launch count to 0."""
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    FORM_LAUNCHES.clear()
+
+
+def _count(name: str, form: str, program: Program) -> None:
+    LAUNCHES[name] += 1
+    key = f"{form}/and{program.and_k}" if program.and_k else f"{form}/program"
+    FORM_LAUNCHES[key] = FORM_LAUNCHES.get(key, 0) + 1
 
 
 def _lib() -> ctypes.CDLL:
@@ -107,7 +120,7 @@ def fused_gather_popcount(data: torch.Tensor, tuples: torch.Tensor,
             ctypes.addressof(packed), out.data_ptr(),
             torch.cuda.current_stream(data.device).cuda_stream)
     _check(lib, rc, "fused_gather_popcount")
-    LAUNCHES["fused_gather_popcount"] += 1
+    _count("fused_gather_popcount", "gather", program)
     return out
 
 
@@ -148,9 +161,9 @@ def fused_rows_popcount(rows: Sequence[torch.Tensor],
             ctypes.addressof(packed), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _check(lib, rc, "fused_rows_popcount")
-    LAUNCHES["fused_rows_popcount"] += 1
+    _count("fused_rows_popcount", "rows", program)
     return out
 
 
-__all__ = ["LAUNCHES", "fused_gather_popcount", "fused_rows_popcount",
-           "reset_launch_counts"]
+__all__ = ["FORM_LAUNCHES", "LAUNCHES", "fused_gather_popcount",
+           "fused_rows_popcount", "reset_launch_counts"]

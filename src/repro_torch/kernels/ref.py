@@ -1,9 +1,9 @@
-"""Plain PyTorch versions of the popcount kernels (their oracles).
+"""Plain PyTorch versions of the CUDA kernels (their oracles).
 
-The CPU path of every wrapper in :mod:`repro_torch.kernels.fused_expr`
-runs these, and the tests and ``chip_smoke.py`` hold the CUDA kernels
-against them on the card. Sketch rows are int32 bit patterns; integer
-results are exact.
+The CPU path of every wrapper in :mod:`repro_torch.kernels.fused_expr` and
+:mod:`repro_torch.kernels.mh_intersect` runs these, and the tests and
+``chip_smoke.py`` hold the CUDA kernels against them on the card. Bloom
+rows are int32 bit patterns; integer results are exact.
 """
 from __future__ import annotations
 
@@ -66,3 +66,35 @@ def bf_edge_intersect3(bloom: torch.Tensor,
     return bf_intersect3_pairs(gather_rows(bloom, triples[:, 0]),
                                gather_rows(bloom, triples[:, 1]),
                                gather_rows(bloom, triples[:, 2]))
+
+
+#: compare cells (rows × k × k) one chunk of the plain MinHash count holds
+_MH_CHUNK_CELLS = 1 << 26
+
+
+def mh_intersect_pairs(a: torch.Tensor, b: torch.Tensor,
+                       sentinel: int) -> torch.Tensor:
+    """Count of (i, j) with ``a[i] == b[j]``, both below ``sentinel``, per
+    row of int32[E, k] x int32[E, k] -> int32[E].
+
+    Duplicates count with multiplicity, so for duplicate-free rows this is
+    |set(a) ∩ set(b)|. Rows go in chunks of at most ``_MH_CHUNK_CELLS``
+    compares, which bounds the k² temporaries.
+    """
+    e, k = a.shape
+    out = torch.zeros(e, dtype=torch.int32, device=a.device)
+    step = max(1, _MH_CHUNK_CELLS // max(k * k, 1))
+    for s in range(0, e, step):
+        x, y = a[s:s + step], b[s:s + step]
+        eq = x[:, :, None] == y[:, None, :]
+        valid = (x[:, :, None] < sentinel) & (y[:, None, :] < sentinel)
+        out[s:s + step] = torch.sum(eq & valid, dim=(1, 2), dtype=torch.int32)
+    return out
+
+
+def khash_match_pairs(a: torch.Tensor, b: torch.Tensor,
+                      sentinel: int) -> torch.Tensor:
+    """Aligned (per-hash-function) match count for k-Hash sketches:
+    positions with ``a == b`` and both below ``sentinel`` -> int32[E]."""
+    return torch.sum((a == b) & (a < sentinel) & (b < sentinel), dim=-1,
+                     dtype=torch.int32)

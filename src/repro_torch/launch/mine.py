@@ -1,11 +1,12 @@
 """Multi-query ProbGraph mining on one device (engine session).
 
 Builds one Bloom sketch of a Kronecker graph and runs the requested
-algorithms over it and one shared per-edge cardinality pass. This slice
-runs ``--algos tc,lcc``; the other algorithms and the multi-device
-``mine()`` path come with later slices.
+algorithms over it and one shared per-edge cardinality pass. The port
+runs ``--algos tc,lcc,jp`` (``jp``: Jarvis–Patrick clustering, Jaccard ≥
+0.05, reported as its number of clusters); the other algorithms and the
+multi-device ``mine()`` path come with later slices.
 
-    python -m repro_torch.launch.mine --scale 21 --algos tc,lcc
+    python -m repro_torch.launch.mine --scale 21 --algos tc,lcc,jp
 
 runs on the CUDA device (``--device cpu`` runs the plain PyTorch path).
 """
@@ -22,7 +23,7 @@ from repro_torch._device import DEFAULT_DEVICE, DeviceLike, synchronize
 from repro_torch.core import graph as G
 from repro_torch.obs import metrics, trace
 
-ALGOS = ("tc", "lcc")
+ALGOS = ("tc", "lcc", "jp")
 
 
 def mine_session(graph: G.Graph, algos: list[str], storage_budget: float = 0.25,
@@ -30,7 +31,7 @@ def mine_session(graph: G.Graph, algos: list[str], storage_budget: float = 0.25,
                  device: DeviceLike = DEFAULT_DEVICE):
     """Multi-query mining over ONE shared sketch build (engine.session).
 
-    TC and LCC share a single per-edge cardinality pass. Returns
+    TC, LCC and clustering share a single per-edge cardinality pass. Returns
     ``{"build": (sketch_bytes, seconds), algo: (value, seconds), ...}``;
     every time ends with the device's work done.
     """
@@ -46,6 +47,7 @@ def mine_session(graph: G.Graph, algos: list[str], storage_budget: float = 0.25,
     runners = {
         "tc": lambda: float(sess.triangle_count()),
         "lcc": lambda: float(torch.mean(sess.local_clustering())),
+        "jp": lambda: int(sess.jarvis_patrick("jaccard", 0.05)[1]),
     }
     for name in algos:
         t0 = time.perf_counter()

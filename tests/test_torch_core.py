@@ -171,7 +171,8 @@ def test_build_bloom_chunking_is_invisible(graphs):
 
 
 def test_sketch_set_build_and_unported_kinds(graphs):
-    """build(..., "bf") matches the reference SketchSet; other kinds wait."""
+    """build(..., kind) matches the reference SketchSet for every kind
+    (k-Hash, 1-Hash and KMV are ported now); an unknown kind raises."""
     rg, tg = graphs
     rs = RS.build(rg, "bf", 0.25, num_hashes=2, seed=0)
     ts = TS.build(tg, "bf", 0.25, num_hashes=2, seed=0)
@@ -179,8 +180,11 @@ def test_sketch_set_build_and_unported_kinds(graphs):
         rs.kind, rs.num_hashes, rs.k, rs.seed, rs.n, rs.total_bits)
     assert np.array_equal(ts.data.numpy().view(np.uint32), np.asarray(rs.data))
     for kind in ("kh", "1h", "kmv"):
-        with pytest.raises(NotImplementedError):
-            TS.build(tg, kind)
+        rs = RS.build(rg, kind, 0.25, seed=1)
+        ts = TS.build(tg, kind, 0.25, seed=1)
+        assert (ts.kind, ts.num_hashes, ts.k, ts.seed, ts.n) == (
+            rs.kind, rs.num_hashes, rs.k, rs.seed, rs.n)
+        assert np.array_equal(ts.data.numpy(), np.asarray(rs.data))
     with pytest.raises(ValueError):
         TS.build(tg, "nope")
 

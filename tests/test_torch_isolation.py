@@ -19,7 +19,7 @@ import torch
 from repro_torch import engine as TE
 from repro_torch.core import graph as TG
 from repro_torch.engine import setexpr as TX
-from repro_torch.kernels import _build, fused_expr, program
+from repro_torch.kernels import _build, fused_expr, mh_intersect, ops, program
 
 ROOT = Path(__file__).resolve().parents[1]
 ENV = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
@@ -108,6 +108,10 @@ def test_build_command_and_library_names():
     assert path.name.startswith("fused_expr-") and path.suffix == ".so"
     assert _build.BUILD_DIR.relative_to(ROOT).parts[0] == "build"
     assert (ROOT / "src/repro_torch/kernels/csrc/fused_expr.cu").exists()
+    for name in ("fused_expr", "mh_intersect"):
+        assert (ROOT / "src/repro_torch/kernels/csrc" /
+                _build.SOURCES[name]).exists()
+        assert _build.library_path(name).name.startswith(f"{name}-")
 
 
 def test_wrappers_validate_inputs():
@@ -125,6 +129,23 @@ def test_wrappers_validate_inputs():
         fused_expr.fused_rows_popcount([data, data[:2]], p)
 
 
+def test_minhash_wrappers_validate_inputs():
+    """Dtype, rank, shape, device and sentinel range are checked before
+    any launch, on every path."""
+    a = torch.zeros((3, 4), dtype=torch.int32)
+    bad = [(a.to(torch.int64), a, "int32"), (a[0], a[0], "int32"),
+           (a, a[:2], "shape"), (a, a.to("meta"), "meta"),
+           (a, a, "sentinel")]
+    for name in ("mh_intersect_pairs", "khash_match_pairs"):
+        for x, y, match in bad:
+            sentinel = 2 ** 31 if match == "sentinel" else 5
+            for fn in (getattr(mh_intersect, name), getattr(ops, name)):
+                with pytest.raises(ValueError, match=match):
+                    fn(x, y, sentinel)
+            with pytest.raises(ValueError, match=match):
+                getattr(ops, name)(x, y, sentinel, use_kernel=False)
+
+
 def test_cpu_path_counts_no_launches():
     """The plain CPU path leaves the kernels' launch counts alone."""
     before = dict(fused_expr.LAUNCHES)
@@ -134,6 +155,18 @@ def test_cpu_path_counts_no_launches():
     fused_expr.fused_gather_popcount(data, tuples, p)
     fused_expr.fused_rows_popcount([data, data], p)
     assert fused_expr.LAUNCHES == before
+    before_mh = dict(mh_intersect.LAUNCHES)
+    forms = dict(fused_expr.FORM_LAUNCHES)
+    mh_intersect.mh_intersect_pairs(data, data, 7)
+    mh_intersect.khash_match_pairs(data, data, 7)
+    ops.mh_intersect_pairs(data, data, 7)
+    ops.khash_match_pairs(data, data, 7)
+    g = TG.kronecker(6, 4, seed=1, device="cpu")
+    for kind in ("kh", "1h"):
+        float(TE.session(g, kind, device="cpu", variant="naive")
+              .triangle_count())
+    assert mh_intersect.LAUNCHES == before_mh
+    assert fused_expr.FORM_LAUNCHES == forms
 
 
 def _run_smoke(cwd: Path):

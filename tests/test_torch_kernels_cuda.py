@@ -16,7 +16,7 @@ import torch
 from repro_torch import engine as TE
 from repro_torch.core import graph as TG
 from repro_torch.engine import setexpr
-from repro_torch.kernels import fused_expr, program, ref
+from repro_torch.kernels import fused_expr, mh_intersect, ops, program, ref
 
 pytestmark = pytest.mark.cuda
 
@@ -95,3 +95,79 @@ def test_kernel_rejects_cpu_operand_mix(cuda):
             data, torch.zeros((3, 2), dtype=torch.int32), p)
     with pytest.raises(ValueError):
         fused_expr.fused_rows_popcount([data, data.cpu()], p)
+
+
+def _minhash_rows(gen, device, e: int, k: int, sentinel: int):
+    """Row pairs drawn from [-40, sentinel + 40): negative ids, pads above
+    the sentinel, duplicates; every 13th row all sentinel, and b copying
+    about half of a's positions so aligned matches occur."""
+    a = torch.randint(-40, sentinel + 40, (e, k), dtype=torch.int32,
+                      device=device, generator=gen)
+    b = torch.randint(-40, sentinel + 40, (e, k), dtype=torch.int32,
+                      device=device, generator=gen)
+    same = torch.rand((e, k), device=device, generator=gen) < 0.5
+    b = torch.where(same, a, b)
+    a[::13] = sentinel
+    b[5::13] = sentinel
+    return a, b
+
+
+@pytest.mark.parametrize("k", [1, 4, 7, 31, 33, 128, 256])
+@pytest.mark.parametrize("e", [0, 1, 999, 65_537])
+def test_minhash_kernels_equal_plain_versions(cuda, k, e):
+    """Both MinHash counts equal their plain versions for every k (below,
+    at and above a warp) and ragged E, E = 0 included; each launch counts
+    once, and E = 0 launches nothing."""
+    gen = torch.Generator(device=cuda).manual_seed(k * 100_003 + e)
+    a, b = _minhash_rows(gen, cuda, e, k, sentinel=150)
+    for name in ("mh_intersect_pairs", "khash_match_pairs"):
+        before = mh_intersect.LAUNCHES[name]
+        got = getattr(mh_intersect, name)(a, b, 150)
+        assert got.dtype == torch.int32 and got.shape == (e,)
+        assert torch.equal(got, getattr(ref, name)(a, b, 150))
+        assert torch.equal(getattr(ops, name)(a, b, 150), got)
+        assert mh_intersect.LAUNCHES[name] == before + 2 * (e > 0)
+
+
+def test_minhash_kernels_known_counts(cuda):
+    """Duplicates count with multiplicity; negative ids are valid; ids at
+    or above the sentinel never match."""
+    a = torch.tensor([[3, 3, -2, 9], [9, 9, 9, 9]], dtype=torch.int32,
+                     device=cuda)
+    b = torch.tensor([[3, -2, 3, 7], [9, 9, 9, 9]], dtype=torch.int32,
+                     device=cuda)
+    assert mh_intersect.mh_intersect_pairs(a, b, 9).tolist() == [5, 0]
+    assert mh_intersect.khash_match_pairs(a, b, 9).tolist() == [1, 0]
+    assert mh_intersect.mh_intersect_pairs(a, b, 10).tolist() == [5, 16]
+
+
+def test_minhash_session_kernel_path_equals_plain_path(cuda):
+    """kh and 1h-naive sessions launch their kernels once per chunk; the
+    per-edge estimates equal the plain path's (same integer counts, same
+    float ops) and TC agrees within rtol 1e-5 (float sums)."""
+    g = TG.kronecker(12, 16, seed=1, device=cuda)
+    for kind, name, kw in (("kh", "khash_match_pairs", {}),
+                           ("1h", "mh_intersect_pairs",
+                            {"variant": "naive"})):
+        sess = TE.session(g, kind, storage_budget=1.0, device=cuda, **kw)
+        mh_intersect.reset_launch_counts()
+        cards = sess.edge_cardinalities()
+        chunks = -(-g.m // sess.plan.edge_chunk)
+        assert mh_intersect.LAUNCHES[name] == chunks
+        plain = TE.MiningSession(g, sess.sketch,
+                                 sess.plan.with_(use_kernel=False))
+        assert torch.equal(cards, plain.edge_cardinalities())
+        assert float(sess.triangle_count()) == pytest.approx(
+            float(plain.triangle_count()), rel=1e-5)
+
+
+def test_minhash_kernels_reject_bad_operands(cuda):
+    """Mixed devices, shapes or types raise before any launch."""
+    a = torch.zeros((4, 3), dtype=torch.int32, device=cuda)
+    before = dict(mh_intersect.LAUNCHES)
+    for bad in (a.cpu(), a[:, :2], a.to(torch.int64)):
+        with pytest.raises(ValueError):
+            mh_intersect.mh_intersect_pairs(a, bad, 5)
+        with pytest.raises(ValueError):
+            mh_intersect.khash_match_pairs(a, bad, 5)
+    assert mh_intersect.LAUNCHES == before

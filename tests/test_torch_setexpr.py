@@ -119,6 +119,31 @@ def test_rows_form_identical_to_reference_interpret(name, w):
                           ref)
 
 
+@pytest.mark.parametrize("w", [2, 8, 34])
+def test_dense_and_identical_to_reference_bf_intersect_kernels(w):
+    """ops.bf_intersect_pairs / bf_intersect3_pairs (the AND2/AND3 forms of
+    the dense kernel) equal the reference's own dense Pallas kernels
+    ``bf_intersect._pairs_impl`` / ``_pairs3_impl``, run in interpret mode
+    through their deprecated shims (E and W block-aligned, as they need)."""
+    from repro.kernels import bf_intersect as RB
+
+    rng = np.random.default_rng(100 + w)
+    a, b, c = (_words(rng, (24, w)) for _ in range(3))
+    with pytest.warns(DeprecationWarning):
+        ref2 = np.asarray(RB.bf_intersect_pairs(
+            jnp.asarray(a), jnp.asarray(b), block_e=8, block_w=w,
+            interpret=True))
+    with pytest.warns(DeprecationWarning):
+        ref3 = np.asarray(RB.bf_intersect3_pairs(
+            jnp.asarray(a), jnp.asarray(b), jnp.asarray(c), block_e=8,
+            block_w=w, interpret=True))
+    assert np.array_equal(TO.bf_intersect_pairs(_t(a), _t(b)).numpy(), ref2)
+    assert np.array_equal(
+        TO.bf_intersect3_pairs(_t(a), _t(b), _t(c)).numpy(), ref3)
+    assert np.array_equal(TR.bf_intersect3_pairs(_t(a), _t(b), _t(c)).numpy(),
+                          ref3)
+
+
 def test_program_compiler_shapes_and_limits():
     """Postfix programs, the AND fast-path tag, and the 16/8 limits."""
     u, v, w = TX.rows(3)
