@@ -12,8 +12,14 @@ Phases, each printed as it runs:
      ANDNOT/nested programs, row widths 2..600 and ragged tuple counts up
      to ~1M; the MinHash counts over k in {1, 4, 7, 31, 33, 128, 256},
      ragged row counts up to ~1M and 0, with all-sentinel rows, negative
-     ids and duplicates. Then each kernel timed at the main path's shape
-     beside its bound.
+     ids and duplicates. The attention kernel over float32 and bfloat16,
+     head dims 16..256, MHA/GQA/MQA, windows 0/8/4096, S in {1, 97, 1000,
+     4096}, Sq != Skv and rows that see no key. Then each kernel timed at
+     the main path's shape beside its bound; attention at the repo's
+     prefill_32k shapes (qwen3_8b, h2o_danube3_4b, gemma_2b), driven once
+     through ``flash_attention`` with its launch count zeroed before and
+     read after, and timed beside the plain version and
+     ``scaled_dot_product_attention`` (a yardstick the port never calls).
   3. The Bloom path: a scale-21 Kronecker graph (2.1M vertices, 31.8M
      edges), ``session(g, "bf", storage_budget=1.0)`` on the card,
      ``triangle_count()`` and ``local_clustering()``. The launch counts are
@@ -25,12 +31,24 @@ Phases, each printed as it runs:
      variant="naive")`` with TC; each with its launch counts zeroed just
      before and read just after, its kernel's match counts on the 1M-edge
      sample and its TC held against the plain path.
-  4. Where the time goes: a warm Bloom pass, a Bloom sketch build and a
-     warm k-Hash pass under torch.profiler (device busy time, idle share,
-     top kernels).
+  3c. Cliques: ``four_clique_count()`` on the phase-3 Bloom session
+     (scale 21; its wedge candidates held to a numpy count from the CSR),
+     then on ``kronecker(16, 16, seed=1)`` the Bloom ``five_clique_count()``
+     (the AND4 form) and the k-Hash ``four_clique_count()``; each with its
+     launch counts zeroed just before and read just after. Kernel-path
+     popcounts of sampled triangles and 4-cliques, hub edges included,
+     equal the plain path's; the k-Hash count equals the plain path's. The
+     AND3 and AND4 forms are timed on the first launch of their pass
+     (``_LAUNCH_TUPLES`` survivor tuples over the session's sketch).
+  4. Where the time goes: a warm Bloom pass, a Bloom sketch build, a warm
+     k-Hash pass and the scale-21 4-clique pass under torch.profiler
+     (device busy time, idle share, top kernels).
   5. A scale-12 graph against an independent numpy reference of the same
      definitions: Bloom words, k-Hash, 1-Hash and KMV sketches identical;
-     TC (and the Bloom LCC) within rtol 1e-4 of the numpy estimators.
+     TC (and the Bloom LCC) within rtol 1e-4 of the numpy estimators; the
+     Bloom 4- and 5-clique estimates within rtol 1e-5 of numpy's, and the
+     exact branch's counts equal to 4,032,443 and 26,522,168 (brute
+     force).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -50,11 +68,35 @@ SRC = Path(__file__).resolve().parent / "src"
 
 #: Kronecker scale of the main path: 2^21 vertices, ~31.8M edges
 SCALE = 21
+#: scale of the 5-clique and k-Hash 4-clique passes (phase 3c)
+CLIQUE5_SCALE = 16
+#: exact counts of kronecker(12, 16, seed=1), by brute force over sets
+EXACT_4CLIQUES_12, EXACT_5CLIQUES_12 = 4_032_443, 26_522_168
+
+#: the repo's prefill_32k attention shapes (src/repro/configs/):
+#: name -> (batch, seq, heads, kv heads, head dim, window)
+ATTN_SHAPES = {"qwen3_8b": (1, 32768, 32, 8, 128, 0),
+               "h2o_danube3_4b": (1, 32768, 32, 8, 120, 4096),
+               "gemma_2b": (1, 8192, 8, 1, 256, 0)}
+#: kernel vs plain attention: float32 sums in another order; bfloat16 adds
+#: one rounding of the output (at most 2^-8 of it)
+ATTN_TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
+            "bfloat16": dict(atol=1e-3, rtol=1e-2)}
+
+#: why a row's ``library_ms`` is null: no single PyTorch call computes it
+NO_LIBRARY = {
+    "popcount": "no PyTorch call computes a gather, a bitwise AND tree and "
+                "a popcount (torch has no popcount)",
+    "minhash": "no PyTorch call computes it: compare, mask and sum are "
+               "three calls",
+}
 
 #: the card's published peaks (H100 SXM data sheet): HBM bytes/s, and the
 #: 32-bit rate outside the tensor cores, ops/s
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+#: dense bf16 tensor-core rate, flop/s
+PEAK_BF16_FLOPS = 989e12
 
 
 def require(cond: bool, msg: str) -> None:
@@ -71,7 +113,7 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, flush, reps: int = 30) -> float:
+def time_ms(fn, flush, reps: int = 30, warmup: int = 3) -> float:
     """Median device time of ``fn()`` with CUDA events.
 
     ``flush()`` runs before each launch: it evicts L2 (the sketch is larger
@@ -82,7 +124,7 @@ def time_ms(fn, flush, reps: int = 30) -> float:
     """
     import torch
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
@@ -98,10 +140,11 @@ def time_ms(fn, flush, reps: int = 30) -> float:
     return times[len(times) // 2]
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float, peak_ops: float = PEAK_OPS_S
+             ) -> tuple[float, str]:
     """Least time for the work: max(bytes / HBM rate, ops / peak rate)."""
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = ops / PEAK_OPS_S * 1e3
+    t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -202,7 +245,10 @@ def phase_kernels(torch, setexpr, fused_expr, ref, flush):
         bound, by = bound_ms(nbytes, ops)
         timing[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
                             bound_by=by, bytes=nbytes, form=f"{form}/{pname}",
-                            max_abs_err=err[f"{form}/{pname}"])
+                            max_abs_err=err[f"{form}/{pname}"],
+                            library_note=NO_LIBRARY["popcount"],
+                            timed_at=f"{form} {pname}, T={T} random tuples, "
+                                     f"W={W}, {n21} rows (a TC pass chunk)")
         print(f"  {name} ({form}, {pname}): {ms:.4f} ms (plain {plain:.4f} "
               f"ms, bound {bound:.4f} ms by {by}, {nbytes} bytes, "
               f"{bound / ms:.1%} of bound) at T={T} W={W}", flush=True)
@@ -268,11 +314,145 @@ def phase_minhash_kernels(torch, mh_intersect, ref, flush):
         plain = time_ms(lambda: plain_fn(a, b, sentinel), flush)
         bound, by = bound_ms(nbytes, ops)
         timing[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
-                            bound_by=by, bytes=nbytes, max_abs_err=err[name])
+                            bound_by=by, bytes=nbytes, max_abs_err=err[name],
+                            library_note=NO_LIBRARY["minhash"],
+                            timed_at=f"E={e} row pairs, k={k} (a TC pass "
+                                     "chunk)")
         print(f"  {name}: {ms:.4f} ms (plain {plain:.4f} ms, bound "
               f"{bound:.4f} ms by {by}, {nbytes} bytes, {ops} compares, "
               f"{bound / ms:.1%} of bound) at E={e} k={k}", flush=True)
     return timing
+
+
+def attended_pairs(s: int, window: int) -> int:
+    """(query, key) pairs causal attention over s positions attends."""
+    if not window or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def library_attention(torch, q, k, v, window: int):
+    """``scaled_dot_product_attention`` on the same inputs (a yardstick
+    only: the port never calls it). A window needs a boolean mask, which
+    only the memory-efficient backend takes at S = 32K, and that backend
+    wants the kv heads expanded (done here, outside the timed call)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if not window:
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    g = q.shape[2] // k.shape[2]
+    kt, vt = (x.repeat_interleave(g, dim=1) for x in (kt, vt))
+    pos = torch.arange(q.shape[1], device=q.device)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                             - window)
+
+    def call():
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  attn_mask=mask)
+    return call
+
+
+def phase_attention(torch, flash_attention, ref, flush):
+    """Phase 2, attention: the kernel against its plain version over
+    types, head dims and layouts, then the prefill shapes: one counted
+    drive through the entry point, parity, and timing."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    err = {"float32": 0.0, "bfloat16": 0.0}
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, device=dev, generator=gen).to(dtype)
+
+    def check(got, want, what):
+        name = str(want.dtype).split(".")[-1]
+        e = float((got.float() - want.float()).abs().max())
+        err[name] = max(err[name], e)
+        require(got.dtype == want.dtype and got.shape == want.shape
+                and torch.allclose(got.float(), want.float(),
+                                   **ATTN_TOL[name]),
+                f"flash_attention {what}: max |kernel - plain| {e} "
+                f"({got.dtype}{list(got.shape)})")
+
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (16, 64, 120, 128, 256):
+            for h, kv in ((4, 4), (4, 2), (4, 1)):
+                for window in (0, 8, 4096):
+                    for sq in (1, 97, 1000, 4096):
+                        q = randn(1, sq, h, d, dtype=dtype)
+                        k, v = (randn(1, sq, kv, d, dtype=dtype)
+                                for _ in range(2))
+                        check(flash_attention.flash_attention(
+                            q, k, v, window=window),
+                            ref.causal_attention(q, k, v, window),
+                            f"{dtype} D={d} H={h} KV={kv} window={window} "
+                            f"S={sq}")
+                        cases += 1
+    for sq, skv, window in ((1000, 97, 0), (97, 1000, 0), (1000, 97, 8),
+                            (4096, 1, 3)):
+        q, k, v = randn(8, sq, 64), randn(2, skv, 64), randn(2, skv, 64)
+        check(flash_attention.flash_attention_folded(q, k, v, groups=4,
+                                                     window=window),
+              ref.flash_attention_folded(q, k, v, groups=4, window=window),
+              f"folded Sq={sq} Skv={skv} window={window}")
+        cases += 1
+    torch.cuda.synchronize()
+    print(f"phase 2: flash_attention equals its plain version on {cases} "
+          f"cases (float32 atol=rtol=2e-5, bfloat16 atol 1e-3 rtol 1e-2); "
+          f"max_abs_err {err}", flush=True)
+
+    # the entry point at the prefill shapes, once each, counted
+    inputs = {}
+    for name, (b, sq, h, kv, d, window) in ATTN_SHAPES.items():
+        inputs[name] = (randn(b, sq, h, d, dtype=torch.bfloat16),
+                        randn(b, sq, kv, d, dtype=torch.bfloat16),
+                        randn(b, sq, kv, d, dtype=torch.bfloat16), window)
+    flash_attention.reset_launch_counts()
+    outs = {name: flash_attention.flash_attention(q, k, v, window=window)
+            for name, (q, k, v, window) in inputs.items()}
+    torch.cuda.synchronize()
+    launches = flash_attention.LAUNCHES["flash_attention"]
+    require(launches == len(ATTN_SHAPES),
+            f"flash_attention launched {launches} times for "
+            f"{len(ATTN_SHAPES)} calls")
+    timing = {}
+    for name, (q, k, v, window) in inputs.items():
+        b, sq, h, kv, d, _ = ATTN_SHAPES[name]
+        out = outs.pop(name)
+        require(bool(torch.isfinite(out).all()),
+                f"flash_attention {name}: non-finite output")
+        check(out, ref.causal_attention(q, k, v, window), name)
+        flops = 4 * b * h * d * attended_pairs(sq, window)
+        nbytes = 2 * (2 * b * sq * h * d + 2 * b * sq * kv * d)
+        bound, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+        ms = time_ms(lambda: flash_attention.flash_attention(
+            q, k, v, window=window), flush, reps=3, warmup=1)
+        plain = time_ms(lambda: ref.causal_attention(q, k, v, window), flush,
+                        reps=2, warmup=1)
+        try:
+            library = time_ms(library_attention(torch, q, k, v, window),
+                              flush, reps=3, warmup=1)
+            why = ""
+        except (RuntimeError, ValueError) as exc:   # OOM is a RuntimeError
+            library, why = None, f" ({type(exc).__name__}: {exc})"[:300]
+        torch.cuda.empty_cache()
+        timing[name] = dict(ms=ms, plain_ms=plain, library_ms=library,
+                            library_note=why.strip(" ()") or None,
+                            bound_ms=bound, bound_by=by, flops=flops,
+                            bytes=nbytes, max_abs_err=max(err.values()),
+                            timed_at=f"{name}: B={b} S={sq} H={h} KV={kv} "
+                                     f"D={d} window={window}, bf16")
+        lib = "null" + why if library is None else f"{library:.3f} ms"
+        print(f"  flash_attention {name} (B={b} S={sq} H={h} KV={kv} D={d} "
+              f"window={window}, bf16): {ms:.3f} ms (plain {plain:.3f} ms, "
+              f"scaled_dot_product_attention {lib}; bound {bound:.3f} ms by "
+              f"{by}: {flops:.4g} flop, {nbytes} bytes; {bound / ms:.2%} of "
+              f"bound)", flush=True)
+    return timing, launches
 
 
 def phase_main(torch, np, TE, TG, kernels, scale: int):
@@ -452,12 +632,208 @@ def phase_minhash(torch, np, TE, kernels, g, chunks: int):
     return results, sessions
 
 
+def wedge_candidates(np, g) -> int:
+    """Σ over canonical edges (u, v) of |{w ∈ N_v : w > v}|, in numpy."""
+    indptr, indices = g.indptr.cpu().numpy(), g.indices.cpu().numpy()
+    row = np.repeat(np.arange(g.n), np.diff(indptr))
+    up = np.bincount(row[indices > row], minlength=g.n)
+    return int(up[g.edges[:, 1].cpu().numpy()].sum())
+
+
+def hub_edge_sample(torch, np, g, hubs: int = 4, per_hub: int = 64,
+                    others: int = 4096):
+    """Canonical edges: up to ``per_hub`` at each of the ``hubs`` vertices
+    of highest degree, and ``others`` drawn at random (seed 0)."""
+    top = torch.topk(g.deg, hubs).indices.to(torch.int32)
+    picks = []
+    for hub in top:
+        at = torch.nonzero((g.edges == hub).any(dim=1)).squeeze(1)
+        picks.append(at[torch.linspace(0, at.numel() - 1, min(
+            per_hub, at.numel()), device=at.device).long()])
+    picks.append(torch.from_numpy(np.random.default_rng(0).choice(
+        g.m, size=min(others, g.m), replace=False)).to(g.edges.device))
+    return g.edges[torch.unique(torch.cat(picks))]
+
+
+def clique_pass(torch, kernels, fn):
+    """Run ``fn()`` with launch counts zeroed just before and read just
+    after; returns (value, seconds, launches, forms, peak bytes)."""
+    from repro_torch.obs.metrics import REGISTRY
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    value = float(fn())
+    seconds = time.perf_counter() - t0
+    gauges = {name: int(REGISTRY.gauge(name).value) for name in (
+        "clique_wedge_candidates", "clique_triangles",
+        "clique_pair_candidates", "clique_quads")}
+    return dict(value=value, s=seconds, launches=kernels.launch_counts(),
+                forms=dict(kernels.fused_expr.FORM_LAUNCHES),
+                peak_bytes=torch.cuda.max_memory_allocated(), **gauges)
+
+
+def require_same_popcounts(torch, TE, sketch, plan, tuples, what: str):
+    """Kernel-path popcounts of ``tuples`` equal the plain path's."""
+    tuples = tuples.to(torch.int32)
+    got = TE.tuple_cardinality_ones(sketch, tuples, plan)
+    want = TE.tuple_cardinality_ones(sketch, tuples,
+                                     plan.with_(use_kernel=False))
+    require(torch.equal(got, want),
+            f"{what}: {int((got != want).sum())} of {tuples.shape[0]} "
+            "popcounts differ from the plain path")
+
+
+def first_tuples(torch, pieces, t: int):
+    """The first ``t`` rows of an enumeration's pieces, as int32 (fewer
+    if the enumeration ends first)."""
+    got, have = [], 0
+    for piece in pieces:
+        got.append(piece)
+        have += piece.shape[0]
+        if have >= t:
+            break
+    return torch.cat(got)[:t].to(torch.int32).contiguous()
+
+
+def time_clique_form(torch, kernels, sketch, tuples, flush, what: str
+                     ) -> dict:
+    """The gather kernel's k-way AND on one launch of a clique pass's
+    survivor tuples (its first launch): parity with the plain version,
+    then its time beside the plain time and the bound."""
+    from repro_torch.engine import setexpr
+    from repro_torch.kernels import ref
+
+    T, k = tuples.shape
+    data, W = sketch.data, sketch.data.shape[1]
+    prog = setexpr.compile_program(setexpr.and_all(*setexpr.rows(k)))
+    got = kernels.fused_expr.fused_gather_popcount(data, tuples, prog)
+    want = ref.fused_gather_popcount(data, tuples, prog)
+    require(torch.equal(got, want),
+            f"AND{k} on {what}: {int((got != want).sum())} of {T} popcounts "
+            "differ from the plain version")
+    nbytes = int(torch.unique(tuples).numel()) * W * 4 + T * k * 4 + T * 4
+    ops = T * W * (k + 1)                     # k-1 ANDs, a popcount, an add
+    ms = time_ms(lambda: kernels.fused_expr.fused_gather_popcount(
+        data, tuples, prog), flush, reps=10, warmup=2)
+    plain = time_ms(lambda: ref.fused_gather_popcount(data, tuples, prog),
+                    flush, reps=5, warmup=1)
+    bound, by = bound_ms(nbytes, ops)
+    timed_at = f"gather AND{k}, T={T} {what}, W={W}"
+    print(f"  AND{k} kernel on one launch of the pass ({timed_at}): "
+          f"{ms:.4f} ms (plain {plain:.4f} ms, bound {bound:.4f} ms by {by}, "
+          f"{nbytes} bytes, {bound / ms:.1%} of bound); popcounts equal the "
+          f"plain version", flush=True)
+    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                bytes=nbytes, max_abs_err=int((got - want).abs().max()),
+                library_note=NO_LIBRARY["popcount"], timed_at=timed_at)
+
+
+def phase_cliques(torch, np, TE, TG, kernels, g, sess):
+    """Phase 3c: 4-cliques on the phase-3 Bloom session at scale 21, then
+    5-cliques (Bloom, AND4) and the k-Hash 4-clique at CLIQUE5_SCALE. The
+    AND3 and AND4 forms are timed on the first launch of their pass."""
+    from repro_torch.core.algorithms import cliques
+
+    want_wedges = wedge_candidates(np, g)
+    r4 = clique_pass(torch, kernels, sess.four_clique_count)
+    and3 = r4["forms"].get("gather/and3", 0)
+    print(f"phase 3c: 4-cliques, scale {SCALE} Bloom session: estimate "
+          f"{r4['value']:.6g}; wedge candidates {r4['clique_wedge_candidates']}"
+          f" (numpy {want_wedges}); tuples to the kernel "
+          f"{r4['clique_triangles']}; AND3 launches {and3} "
+          f"(launches {r4['launches']}); pass {r4['s']:.3f} s; peak device "
+          f"memory {r4['peak_bytes']} bytes", flush=True)
+    require(sess.plan.use_kernel, "the 4-clique pass must use the kernels")
+    require(r4["clique_wedge_candidates"] == want_wedges,
+            "4-clique wedge candidates differ from the numpy count")
+    require(and3 >= -(-r4["clique_triangles"] // cliques._LAUNCH_TUPLES) > 0
+            and r4["launches"]["fused_gather_popcount"] == and3,
+            f"4-clique pass: {and3} AND3 launches for "
+            f"{r4['clique_triangles']} tuples ({r4['forms']})")
+    require(math.isfinite(r4["value"]) and r4["value"] > 0,
+            f"4-clique estimate {r4['value']}")
+    sample = hub_edge_sample(torch, np, g)
+    tri = torch.cat(list(cliques.closed_triangles(g, sess.sketch,
+                                                  edges=sample)))
+    require_same_popcounts(torch, TE, sess.sketch, sess.plan,
+                           tri[:2_000_000], "scale-21 triangle sample")
+    print(f"  {min(tri.shape[0], 2_000_000)} triangles of {sample.shape[0]} "
+          f"sampled edges (hub edges included): AND3 popcounts equal the "
+          f"plain path", flush=True)
+    del tri
+    flush = make_flush(torch)
+    timing = {"bf_edge_intersect3": time_clique_form(
+        torch, kernels, sess.sketch, first_tuples(
+            torch, cliques.closed_triangles(g, sess.sketch),
+            cliques._LAUNCH_TUPLES), flush,
+        f"survivor tuples of the scale-{SCALE} 4-clique pass")}
+
+    t0 = time.perf_counter()
+    g16 = TG.kronecker(CLIQUE5_SCALE, 16, seed=1, device="cuda")
+    gen_s = time.perf_counter() - t0
+    bf16s = TE.session(g16, "bf", storage_budget=1.0, device="cuda")
+    r5 = clique_pass(torch, kernels, bf16s.five_clique_count)
+    and4 = r5["forms"].get("gather/and4", 0)
+    print(f"phase 3c: 5-cliques, kronecker({CLIQUE5_SCALE}, 16, seed=1) "
+          f"(n={g16.n} m={g16.m}, generated in {gen_s:.1f} s) Bloom "
+          f"words={bf16s.sketch.data.shape[1]}: estimate {r5['value']:.6g}; "
+          f"wedges {r5['clique_wedge_candidates']}, triangles "
+          f"{r5['clique_triangles']}, pair candidates "
+          f"{r5['clique_pair_candidates']}, tuples to the kernel "
+          f"{r5['clique_quads']}; AND4 launches {and4}; pass {r5['s']:.3f} s;"
+          f" peak device memory {r5['peak_bytes']} bytes", flush=True)
+    require(and4 >= -(-r5["clique_quads"] // cliques._LAUNCH_TUPLES) > 0
+            and r5["launches"]["fused_gather_popcount"] == and4,
+            f"5-clique pass: {and4} AND4 launches ({r5['forms']})")
+    require(math.isfinite(r5["value"]) and r5["value"] > 0,
+            f"5-clique estimate {r5['value']}")
+    sample16 = hub_edge_sample(torch, np, g16, per_hub=16, others=1024)
+    quads = torch.cat(list(cliques.closed_quads(g16, bf16s.sketch,
+                                                edges=sample16)))
+    require_same_popcounts(torch, TE, bf16s.sketch, bf16s.plan,
+                           quads[:2_000_000], "scale-16 4-clique sample")
+    print(f"  {min(quads.shape[0], 2_000_000)} 4-cliques of "
+          f"{sample16.shape[0]} sampled edges (hub edges included): AND4 "
+          f"popcounts equal the plain path", flush=True)
+    del quads
+    timing["fused_gather_popcount[AND4]"] = time_clique_form(
+        torch, kernels, bf16s.sketch, first_tuples(
+            torch, cliques.closed_quads(g16, bf16s.sketch),
+            cliques._LAUNCH_TUPLES), flush,
+        f"survivor 4-cliques of the scale-{CLIQUE5_SCALE} 5-clique pass")
+    del bf16s, flush
+
+    kh = TE.session(g16, "kh", storage_budget=1.0, device="cuda")
+    rk = clique_pass(torch, kernels, kh.four_clique_count)
+    t0 = time.perf_counter()
+    plain_kh = float(TE.MiningSession(g16, kh.sketch, kh.plan.with_(
+        use_kernel=False)).four_clique_count())
+    plain_kh_s = time.perf_counter() - t0
+    print(f"phase 3c: k-Hash 4-cliques, kronecker({CLIQUE5_SCALE}) k="
+          f"{kh.sketch.k}: estimate {rk['value']:.6g} (plain path "
+          f"{plain_kh:.6g}, {plain_kh_s:.3f} s); triangles (exact closing) "
+          f"{rk['clique_triangles']}; launches {rk['launches']}; pass "
+          f"{rk['s']:.3f} s; peak device memory {rk['peak_bytes']} bytes",
+          flush=True)
+    require(rk["launches"]["khash_match_pairs"] > 0,
+            "the k-Hash 4-clique pass launched no khash_match_pairs")
+    require(rk["value"] == plain_kh,
+            f"k-Hash 4-cliques {rk['value']} vs plain path {plain_kh}")
+    del kh, g16
+    torch.cuda.empty_cache()
+    return dict(four=r4, five=r5, kh=rk, and3=and3, and4=and4,
+                timing=timing)
+
+
 def phase_breakdown(torch, TE, sketches, g, sess, warm_pass_s, build_s,
-                    kh_sess, kh_warm_pass_s):
+                    kh_sess, kh_warm_pass_s, clique_s):
     """Phase 4: where the time goes. A warm Bloom pass (TC + LCC), a Bloom
-    sketch build and a warm k-Hash pass (TC) run under torch.profiler;
-    device busy time is the sum of their kernels' device time, and the
-    idle share is taken against the unprofiled wall time of phases 3/3b."""
+    sketch build, a warm k-Hash pass (TC) and the 4-clique pass run under
+    torch.profiler; device busy time is the sum of their kernels' device
+    time, and the idle share is taken against the unprofiled wall time of
+    phases 3/3b/3c."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -488,7 +864,9 @@ def phase_breakdown(torch, TE, sketches, g, sess, warm_pass_s, build_s,
         g, "bf", storage_budget=1.0), build_s)
     kh_busy = run("warm k-Hash TC pass", lambda: float(TE.MiningSession(
         g, kh_sess.sketch, kh_sess.plan).triangle_count()), kh_warm_pass_s)
-    return pass_busy, build_busy, kh_busy
+    clique_busy = run(f"4-clique pass (scale {SCALE})",
+                      lambda: float(sess.four_clique_count()), clique_s)
+    return pass_busy, build_busy, kh_busy, clique_busy
 
 
 def phase_reference(torch, np, TE, TG, sketches):
@@ -527,6 +905,95 @@ def phase_reference(torch, np, TE, TG, sketches):
 
 _GOLDEN = 0x9E3779B9
 _PAD_HASH = 0xFFFFFFFF
+
+
+def numpy_bloom_cliques(np, hash_u32, bloom, indptr, indices, edges,
+                        num_hashes: int, seed: int = 0):
+    """Bloom 4- and 5-clique estimates from the definitions, in numpy:
+    candidates w > v of N_v per edge (u, v), closed when every hash bit of
+    w is set in u's row; pairs w < x of one edge's survivors closed when
+    x's bits are set in w's row; Eq. 2 on popcount(AND of the rows),
+    summed in float64 and divided by 4 and 5."""
+    n, words = bloom.shape
+    bits = words * 32
+    pos = np.stack([hash_u32(np.arange(n), (i + seed * _GOLDEN) & 0xFFFFFFFF)
+                    .astype(np.int64) % bits for i in range(num_hashes)], 1)
+
+    def member(a, x):
+        ok = np.ones(a.shape[0], dtype=bool)
+        for i in range(num_hashes):
+            p = pos[x, i]
+            ok &= ((bloom[a, p >> 5] >> (p & 31).astype(np.uint32)) & 1) == 1
+        return ok
+
+    def estimate_sum(cols):
+        total = 0.0
+        for s0 in range(0, cols[0].shape[0], 1 << 20):
+            acc = bloom[cols[0][s0:s0 + (1 << 20)]]
+            for c in cols[1:]:
+                acc = acc & bloom[c[s0:s0 + (1 << 20)]]
+            ones = np.unpackbits(acc.view(np.uint8), axis=1).sum(axis=1)
+            ones = np.minimum(ones.astype(np.float64), bits - 1)
+            total += float((-(bits / num_hashes)
+                            * np.log1p(-ones / bits)).sum())
+        return total
+
+    def expand(counts):
+        """(item, rank) of every slot of items holding counts[i] slots."""
+        item = np.repeat(np.arange(counts.shape[0]), counts)
+        first = np.cumsum(counts) - counts
+        return item, np.arange(item.shape[0]) - first[item]
+
+    row = np.repeat(np.arange(n), np.diff(indptr))
+    up_first = indptr[:-1].astype(np.int64) + np.bincount(
+        row[indices < row], minlength=n)
+    up_count = indptr[1:] - up_first
+    u, v = edges[:, 0].astype(np.int64), edges[:, 1].astype(np.int64)
+    e, rank = expand(up_count[v])
+    w = indices[up_first[v][e] + rank].astype(np.int64)
+    keep = member(u[e], w)
+    e, w = e[keep], w[keep]
+    cc4 = estimate_sum([u[e], v[e], w]) / 4
+    later = np.searchsorted(e, e, side="right") - 1 - np.arange(e.shape[0])
+    i, rank = expand(later)
+    j = i + 1 + rank
+    keep = member(w[i], w[j])
+    i, j = i[keep], j[keep]
+    cc5 = estimate_sum([u[e[i]], v[e[i]], w[i], w[j]]) / 5
+    return cc4, cc5
+
+
+def phase_reference_cliques(torch, np, TE, g):
+    """Phase 5, cliques: the Bloom 4- and 5-clique estimates at scale 12
+    against numpy's and against the exact counts; the exact branch
+    reproduces the brute-force counts."""
+    from repro_torch.core.algorithms import cliques
+    from repro_torch.core.hashing import np_hash_u32
+
+    sess = TE.session(g, "bf", storage_budget=0.25, device="cuda")
+    t0 = time.perf_counter()
+    cc4, cc5 = float(sess.four_clique_count()), float(sess.five_clique_count())
+    est_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ex4, ex5 = float(cliques.four_clique_count(g)), float(
+        cliques.five_clique_count(g))
+    exact_s = time.perf_counter() - t0
+    want4, want5 = numpy_bloom_cliques(
+        np, np_hash_u32, sess.sketch.data.cpu().numpy().view(np.uint32),
+        g.indptr.cpu().numpy(), g.indices.cpu().numpy(),
+        g.edges.cpu().numpy(), sess.sketch.num_hashes, sess.sketch.seed)
+    print(f"phase 5: scale 12 cliques: Bloom 4-cliques {cc4:.6g} (numpy "
+          f"{want4:.6g}, exact {ex4:.0f}, rel err "
+          f"{(cc4 - ex4) / ex4:+.4f}); Bloom 5-cliques {cc5:.6g} (numpy "
+          f"{want5:.6g}, exact {ex5:.0f}, rel err {(cc5 - ex5) / ex5:+.4f}); "
+          f"estimates {est_s:.3f} s, exact counts {exact_s:.3f} s",
+          flush=True)
+    require(ex4 == EXACT_4CLIQUES_12 and ex5 == EXACT_5CLIQUES_12,
+            f"exact clique counts {ex4}, {ex5} vs brute force "
+            f"{EXACT_4CLIQUES_12}, {EXACT_5CLIQUES_12}")
+    require(math.isclose(cc4, want4, rel_tol=1e-5)
+            and math.isclose(cc5, want5, rel_tol=1e-5),
+            f"Bloom clique estimates {cc4}, {cc5} vs numpy {want4}, {want5}")
 
 
 def numpy_minhash(np, hash_u32, indptr, indices, n: int, k: int, d_max: int,
@@ -649,18 +1116,24 @@ def main() -> None:
     timing = phase_kernels(torch, setexpr, kernels.fused_expr, ref, flush)
     timing.update(phase_minhash_kernels(torch, kernels.mh_intersect, ref,
                                         flush))
+    attn, attn_launches = phase_attention(torch, kernels.flash_attention, ref,
+                                          flush)
+    timing["flash_attention"] = attn["qwen3_8b"]
     del flush
     torch.cuda.empty_cache()
     g, sess, main_path = phase_main(torch, np, TE, TG, kernels, SCALE)
     mh_path, mh_sessions = phase_minhash(torch, np, TE, kernels, g,
                                          main_path["chunks"])
+    clq = phase_cliques(torch, np, TE, TG, kernels, g, sess)
+    timing.update(clq["timing"])
     phase_breakdown(torch, TE, sketches, g, sess, main_path["warm_pass_s"],
                     main_path["build_s"], mh_sessions["kh"],
-                    mh_path["kh"]["warm_pass_s"])
+                    mh_path["kh"]["warm_pass_s"], clq["four"]["s"])
     del g, sess, mh_sessions
     torch.cuda.empty_cache()
     g12, exact = phase_reference(torch, np, TE, TG, sketches)
     phase_reference_minhash(torch, np, TE, g12, exact)
+    phase_reference_cliques(torch, np, TE, g12)
 
     print(f"main path: scale {SCALE} n={main_path['n']} "
           f"m={main_path['m']} words={main_path['words']} "
@@ -670,16 +1143,25 @@ def main() -> None:
                       f"{r['pass_s']:.3f} s launches "
                       f"{max(r['launches'].values())}"
                       for label, r in mh_path.items())
+          + f"; 4-cliques pass {clq['four']['s']:.3f} s AND3 launches "
+          f"{clq['and3']}; 5-cliques (scale {CLIQUE5_SCALE}) pass "
+          f"{clq['five']['s']:.3f} s AND4 launches {clq['and4']}; "
+          f"flash_attention launches {attn_launches}"
           + f"; total {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # each row: the kernel's launches on the path that runs it, each path
-    # counted from zero (rows 3-6: their form's launches on the Bloom path)
+    # each row: the kernel's launches on the paths that run it, each path
+    # counted from zero (row 1: the Bloom TC, 4-clique and 5-clique paths;
+    # rows 3-6 and the AND4 entry: their form's launches on those paths);
+    # rows 1-5 are timed at a TC pass chunk, row 6 and the AND4 entry at
+    # the first launch of their clique pass (``timed_at``)
     fused_src = "src/repro_torch/kernels/csrc/fused_expr.cu"
     mh_src = "src/repro_torch/kernels/csrc/mh_intersect.cu"
+    gather = (main_path["launches"]["fused_gather_popcount"]
+              + clq["four"]["launches"]["fused_gather_popcount"]
+              + clq["five"]["launches"]["fused_gather_popcount"])
     rows = [
         ("fused_gather_popcount", fused_src,
-         "src/repro/kernels/fused_expr.py:79",
-         main_path["launches"]["fused_gather_popcount"]),
+         "src/repro/kernels/fused_expr.py:79", gather),
         ("fused_rows_popcount", fused_src,
          "src/repro/kernels/fused_expr.py:129",
          main_path["launches"]["fused_rows_popcount"]),
@@ -693,12 +1175,15 @@ def main() -> None:
          "src/repro/kernels/bf_intersect.py:168",
          main_path["forms"].get("gather/and2", 0)),
         ("bf_edge_intersect3", fused_src,
-         "src/repro/kernels/bf_intersect.py:219",
-         main_path["forms"].get("gather/and3", 0)),
+         "src/repro/kernels/bf_intersect.py:219", clq["and3"]),
         ("mh_intersect_pairs", mh_src, "src/repro/kernels/mh_intersect.py:26",
          mh_path["1h-naive"]["launches"]["mh_intersect_pairs"]),
         ("khash_match_pairs", mh_src, "src/repro/kernels/mh_intersect.py:53",
          mh_path["kh"]["launches"]["khash_match_pairs"]),
+        ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention.py:73", attn_launches),
+        ("fused_gather_popcount[AND4]", fused_src,
+         "src/repro/kernels/fused_expr.py:79", clq["and4"]),
     ]
     records = [{
         "name": name, "route": "cuda", "source": source,
@@ -706,7 +1191,10 @@ def main() -> None:
         "max_abs_err": timing[name]["max_abs_err"],
         "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
         "bound_ms": timing[name]["bound_ms"],
-        "bound_by": timing[name]["bound_by"], "library_ms": None,
+        "bound_by": timing[name]["bound_by"],
+        "library_ms": timing[name].get("library_ms"),
+        "library_note": timing[name].get("library_note"),
+        "timed_at": timing[name]["timed_at"],
     } for name, source, replaces, launches in rows]
     print(smi)
     print(json.dumps({"kernels": records}))

@@ -242,6 +242,38 @@ def neighbors_np(g: Graph, v: int) -> np.ndarray:
     return g.indices[lo:hi].cpu().numpy()
 
 
+def edge_keys(g: Graph) -> torch.Tensor:
+    """Sorted canonical keys ``u·n + v`` (u < v) of ``g.edges``: int64[m]."""
+    e = g.edges.to(torch.int64)
+    return e[:, 0] * g.n + e[:, 1]
+
+
+def has_edge(keys: torch.Tensor, n: int, a: torch.Tensor,
+             b: torch.Tensor) -> torch.Tensor:
+    """Whether {a, b} is an edge, by binary search of ``keys``
+    (:func:`edge_keys`): bool, broadcast shape of ``a`` and ``b``. This
+    replaces the reference's search of the padded ``adj`` rows."""
+    a, b = a.to(torch.int64), b.to(torch.int64)
+    want = torch.minimum(a, b) * n + torch.maximum(a, b)
+    if keys.numel() == 0:
+        return torch.zeros_like(want, dtype=torch.bool)
+    pos = torch.searchsorted(keys, want).clamp_(max=keys.numel() - 1)
+    return keys[pos] == want
+
+
+def four_clique_count_bruteforce(g: Graph) -> int:
+    """Exact 4-clique oracle (tiny graphs only): O(m * d^2)."""
+    adj_sets = [set(neighbors_np(g, v).tolist()) for v in range(g.n)]
+    count = 0
+    for u, v in g.edges.cpu().numpy():
+        common = sorted(adj_sets[u] & adj_sets[v])
+        for i, wi in enumerate(common):
+            for wj in common[i + 1:]:
+                if wj in adj_sets[wi]:
+                    count += 1
+    return count // 6  # each 4-clique counted once per each of its 6 edges
+
+
 def triangle_count_dense(g: Graph) -> int:
     """Exact TC oracle via dense A^3 trace (small graphs only)."""
     n = g.n

@@ -189,6 +189,39 @@ def build_bloom_np(graph: Graph, words: int, num_hashes: int = 2,
     return out
 
 
+def bloom_positions(x, num_hashes: int, total_bits: int,
+                    seed: int = 0) -> torch.Tensor:
+    """Bit positions of keys ``x`` under a Bloom sketch's ``num_hashes``
+    hash functions: int64[..., num_hashes] in ``[0, total_bits)``."""
+    return hash_family(x, num_hashes, seed) % total_bits
+
+
+def bloom_test(data: torch.Tensor, rows: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    """Whether all bits ``positions[..., :]`` are set in the Bloom rows
+    ``data[rows]``: bool[...] (``rows`` [...], ``positions`` [..., b]).
+
+    Words are gathered from the flat sketch, one element per index: on
+    CUDA a row gather of ``data`` would copy whole rows per index."""
+    flat = rows.to(torch.int64)[..., None] * data.shape[1] + (positions >> 5)
+    words = data.reshape(-1)[flat]
+    return ((words >> (positions & 31)) & 1 == 1).all(-1)
+
+
+def bloom_membership(bloom_row: torch.Tensor, candidates: torch.Tensor,
+                     n: int, num_hashes: int, total_bits: int,
+                     seed: int = 0) -> torch.Tensor:
+    """Query x ∈ X for a batch of candidates against one Bloom row.
+
+    bloom_row: int32[words]; candidates: int[...]; returns bool[...].
+    Candidates ``>= n`` (pads) are never members.
+    """
+    valid = candidates < n
+    safe = torch.where(valid, candidates, 0)
+    pos = bloom_positions(safe, num_hashes, total_bits, seed)
+    return bloom_test(bloom_row[None], torch.zeros_like(safe), pos) & valid
+
+
 # ----------------------------------------------------------------------------
 # MinHash (k-Hash): one argmin per hash function (multiset semantics)
 # ----------------------------------------------------------------------------

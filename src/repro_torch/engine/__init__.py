@@ -16,6 +16,8 @@ from .engine import (
     sum_edge_cardinalities,
     triple_cardinality_ones,
     tuple_cardinality_ones,
+    wedge_quad_ones,
+    wedge_triple_ones,
 )
 from .plan import (EnginePlan, fold_edges, fold_edges_masked, map_edges,
                    order_edges_by_hub, plan_for, pow2_bucket)
@@ -25,5 +27,6 @@ __all__ = [
     "fold_edges", "fold_edges_masked", "map_edges", "order_edges_by_hub",
     "pair_cardinality_fn", "plan_for", "pow2_bucket", "resolve_plan",
     "session", "setexpr", "sum_edge_cardinalities",
-    "triple_cardinality_ones", "tuple_cardinality_ones",
+    "triple_cardinality_ones", "tuple_cardinality_ones", "wedge_quad_ones",
+    "wedge_triple_ones",
 ]

@@ -16,6 +16,8 @@ from .engine import (
     sum_edge_cardinalities,
     triple_cardinality_ones,
     tuple_cardinality_ones,
+    wedge_quad_ones,
+    wedge_triple_ones,
 )
 from .plan import (
     EnginePlan,
@@ -41,5 +43,5 @@ __all__ = [
     "map_edges", "or_all", "order_edges_by_hub", "pair_cardinality_fn",
     "plan_for", "pow2_bucket", "resolve_plan", "rows", "session", "setexpr",
     "sum_edge_cardinalities", "triple_cardinality_ones",
-    "tuple_cardinality_ones",
+    "tuple_cardinality_ones", "wedge_quad_ones", "wedge_triple_ones",
 ]

@@ -6,10 +6,12 @@
     map / fold over an edge list with the degree-ordered layout.
   * ``tuple_cardinality_ones`` / ``triple_cardinality_ones`` — the k-way
     popcount provider over row-index tuples, compiled from the k-way AND
-    set expression (``repro_torch.engine.setexpr``).
+    set expression (``repro_torch.engine.setexpr``); ``wedge_triple_ones``
+    / ``wedge_quad_ones`` — the same over the reference's wedge grids.
   * ``session`` — build the sketch once (Bloom, k-Hash, 1-Hash or KMV)
-    and run TC, LCC, Jarvis–Patrick clustering and the cardinality
-    similarities over it and one shared per-edge cardinality pass.
+    and run TC, LCC, 4- and 5-clique counts, Jarvis–Patrick clustering
+    and the cardinality similarities over it (TC, LCC and clustering
+    share one per-edge cardinality pass).
 
 Edge sharding (``shard_edges=True``), the streaming refresh
 (``DeviceCarry``) and the footprints of the serving tier come with later
@@ -23,9 +25,11 @@ from typing import Optional
 import torch
 
 from .._device import DEFAULT_DEVICE, DeviceLike, resolve_device
+from ..core.estimators import _popcount_words
 from ..core.graph import Graph
 from ..core.intersect import CardFn, make_pair_cardinality_fn
 from ..core.sketches import SketchSet, build as build_sketch
+from ..kernels.ref import gather_rows
 from ..obs import trace
 from . import setexpr
 from .plan import (EnginePlan, fold_edges, map_edges, order_edges_by_hub,
@@ -116,6 +120,46 @@ def triple_cardinality_ones(sketch: SketchSet, triples: torch.Tensor,
     return tuple_cardinality_ones(sketch, triples, plan)
 
 
+def _grid_ones(sketch: SketchSet, cols: list, plan: EnginePlan
+               ) -> torch.Tensor:
+    """popcnt(AND of the rows named by broadcastable id grids ``cols``):
+    int32 over their broadcast shape. The kernel path flattens the grids to
+    tuples for :func:`tuple_cardinality_ones`; the plain path gathers each
+    grid's rows once and ANDs them broadcast.
+
+    The grid providers below keep the reference's signatures and layouts
+    for parity with its engine; the port's own clique path enumerates
+    from the CSR and calls :func:`tuple_cardinality_ones` directly."""
+    shape = torch.broadcast_shapes(*(c.shape for c in cols))
+    if plan.use_kernel:
+        tuples = torch.stack([c.expand(shape).reshape(-1) for c in cols],
+                             dim=1).to(torch.int32)
+        return tuple_cardinality_ones(sketch, tuples, plan).reshape(shape)
+    acc = None
+    for c in cols:
+        rows = gather_rows(sketch.data, c.reshape(-1)).reshape(
+            *c.shape, sketch.data.shape[1])
+        acc = rows if acc is None else acc & rows
+    return _popcount_words(acc)
+
+
+def wedge_triple_ones(sketch: SketchSet, u: torch.Tensor, v: torch.Tensor,
+                      w_grid: torch.Tensor, plan: EnginePlan) -> torch.Tensor:
+    """popcnt(Bu & Bv & Bw) over a wedge grid: u, v int32[C], w int32[C, d]
+    -> int32[C, d] (the 4-clique triple-intersection provider)."""
+    return _grid_ones(sketch, [u[:, None], v[:, None], w_grid], plan)
+
+
+def wedge_quad_ones(sketch: SketchSet, u: torch.Tensor, v: torch.Tensor,
+                    w_grid: torch.Tensor, x_grid: torch.Tensor,
+                    plan: EnginePlan) -> torch.Tensor:
+    """popcnt(Bu & Bv & Bw & Bx) over a wedge-pair grid: u, v int32[C],
+    w int32[C, dw], x int32[C, dx] -> int32[C, dw, dx] (the 5-clique 4-way
+    intersection provider)."""
+    return _grid_ones(sketch, [u[:, None, None], v[:, None, None],
+                               w_grid[:, :, None], x_grid[:, None, :]], plan)
+
+
 # ----------------------------------------------------------------------------
 # multi-query session
 # ----------------------------------------------------------------------------
@@ -165,6 +209,17 @@ class MiningSession:
         return jarvis_patrick(self.graph, self.sketch, similarity, threshold,
                               plan=self.plan,
                               edge_cards=self.edge_cardinalities())
+
+    def four_clique_count(self, **kw) -> torch.Tensor:
+        """Scalar 4-clique count estimate (3-way sketch intersections)."""
+        from ..core.algorithms.cliques import four_clique_count
+        return four_clique_count(self.graph, self.sketch, plan=self.plan, **kw)
+
+    def five_clique_count(self, **kw) -> torch.Tensor:
+        """Scalar 5-clique count estimate (4-way sketch intersections)."""
+        from ..core.algorithms.cliques import five_clique_count
+        return five_clique_count(self.graph, self.sketch, plan=self.plan,
+                                 **kw)
 
     def similarity(self, pairs: torch.Tensor, measure: str = "jaccard"
                    ) -> torch.Tensor:

@@ -22,7 +22,8 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
 #: kernel library name -> source file under csrc/
-SOURCES = {"fused_expr": "fused_expr.cu", "mh_intersect": "mh_intersect.cu"}
+SOURCES = {"fused_expr": "fused_expr.cu", "mh_intersect": "mh_intersect.cu",
+           "flash_attention": "flash_attention.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

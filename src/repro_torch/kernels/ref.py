@@ -1,12 +1,14 @@
 """Plain PyTorch versions of the CUDA kernels (their oracles).
 
-The CPU path of every wrapper in :mod:`repro_torch.kernels.fused_expr` and
-:mod:`repro_torch.kernels.mh_intersect` runs these, and the tests and
+The CPU path of every wrapper in :mod:`repro_torch.kernels.fused_expr`,
+:mod:`repro_torch.kernels.mh_intersect` and
+:mod:`repro_torch.kernels.flash_attention` runs these, and the tests and
 ``chip_smoke.py`` hold the CUDA kernels against them on the card. Bloom
 rows are int32 bit patterns; integer results are exact.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -98,3 +100,70 @@ def khash_match_pairs(a: torch.Tensor, b: torch.Tensor,
     positions with ``a == b`` and both below ``sentinel`` -> int32[E]."""
     return torch.sum((a == b) & (a < sentinel) & (b < sentinel), dim=-1,
                      dtype=torch.int32)
+
+
+#: score cells (batch · heads · queries · keys) one chunk of the plain
+#: attention holds in float32 (1 GiB)
+_ATTN_CHUNK_CELLS = 1 << 28
+
+#: the reference's masked score
+NEG_INF = -1e30
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     window: int = 0) -> torch.Tensor:
+    """Causal (optionally sliding-window) attention with an fp32 softmax.
+
+    q: [B, Sq, H, D], k/v: [B, Skv, KV, D] -> [B, Sq, H, D] in q's dtype.
+    Query head h reads kv head h // (H / KV); query and key positions both
+    start at 0; a key is seen when ``kv_pos <= q_pos`` and, with a window,
+    ``kv_pos > q_pos - window``. Masked scores are -1e30, so a row that
+    sees no key averages every value, as the reference's softmax does.
+
+    Everything is computed in float32, q scaled by 1/sqrt(D) before the
+    product as the TPU kernel does. Queries go in chunks of at most
+    ``_ATTN_CHUNK_CELLS`` scores, each against only the keys its band can
+    reach, so the function runs at S = 32K.
+    """
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = 1.0 / math.sqrt(d)
+    qf = (q.to(torch.float32) * scale).reshape(b, sq, kvh, g, d)
+    qf = qf.permute(0, 2, 3, 1, 4)                    # [B, KV, g, Sq, D]
+    kf = k.to(torch.float32).permute(0, 2, 3, 1)      # [B, KV, D, Skv]
+    vf = v.to(torch.float32).permute(0, 2, 1, 3)      # [B, KV, Skv, D]
+    out = torch.empty((b, kvh, g, sq, d), dtype=torch.float32,
+                      device=q.device)
+    step = max(1, _ATTN_CHUNK_CELLS // max(b * h * skv, 1))
+    for s0 in range(0, sq, step):
+        s1 = min(sq, s0 + step)
+        lo, hi = 0, min(skv, s1)
+        if window:
+            lo = max(0, s0 - window + 1)
+            if s1 - window > skv - 1:          # a row sees no key
+                lo, hi = 0, skv
+        c = s1 - s0
+        qc = qf[:, :, :, s0:s1].reshape(b, kvh, g * c, d)
+        sc = torch.matmul(qc, kf[..., lo:hi]).reshape(b, kvh, g, c, hi - lo)
+        qpos = torch.arange(s0, s1, device=q.device)[:, None]
+        kpos = torch.arange(lo, hi, device=q.device)[None, :]
+        mask = kpos <= qpos
+        if window:
+            mask &= kpos > qpos - window
+        sc = torch.where(mask, sc, NEG_INF).softmax(dim=-1)
+        out[:, :, :, s0:s1] = torch.matmul(
+            sc.reshape(b, kvh, g * c, hi - lo), vf[:, :, lo:hi]
+        ).reshape(b, kvh, g, c, d)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+
+
+def flash_attention_folded(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *, groups: int,
+                           window: int = 0) -> torch.Tensor:
+    """:func:`causal_attention` on the folded layout: q [BH, Sq, D], k/v
+    [BKV, Skv, D] with BH = BKV · groups, head i reading kv head
+    i // groups -> [BH, Sq, D]."""
+    out = causal_attention(q.transpose(0, 1)[None], k.transpose(0, 1)[None],
+                           v.transpose(0, 1)[None], window)
+    return out[0].transpose(0, 1).contiguous()

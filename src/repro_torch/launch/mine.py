@@ -1,12 +1,13 @@
 """Multi-query ProbGraph mining on one device (engine session).
 
 Builds one Bloom sketch of a Kronecker graph and runs the requested
-algorithms over it and one shared per-edge cardinality pass. The port
-runs ``--algos tc,lcc,jp`` (``jp``: Jarvis–Patrick clustering, Jaccard ≥
-0.05, reported as its number of clusters); the other algorithms and the
-multi-device ``mine()`` path come with later slices.
+algorithms over it (TC, LCC and clustering share one per-edge cardinality
+pass). The port runs ``--algos tc,lcc,4clique,cliques5,jp`` (``jp``:
+Jarvis–Patrick clustering, Jaccard ≥ 0.05, reported as its number of
+clusters); ``localcluster`` and the multi-device ``mine()`` path come with
+later slices.
 
-    python -m repro_torch.launch.mine --scale 21 --algos tc,lcc,jp
+    python -m repro_torch.launch.mine --scale 21 --algos tc,lcc,4clique
 
 runs on the CUDA device (``--device cpu`` runs the plain PyTorch path).
 """
@@ -23,7 +24,7 @@ from repro_torch._device import DEFAULT_DEVICE, DeviceLike, synchronize
 from repro_torch.core import graph as G
 from repro_torch.obs import metrics, trace
 
-ALGOS = ("tc", "lcc", "jp")
+ALGOS = ("tc", "lcc", "4clique", "cliques5", "jp")
 
 
 def mine_session(graph: G.Graph, algos: list[str], storage_budget: float = 0.25,
@@ -31,7 +32,8 @@ def mine_session(graph: G.Graph, algos: list[str], storage_budget: float = 0.25,
                  device: DeviceLike = DEFAULT_DEVICE):
     """Multi-query mining over ONE shared sketch build (engine.session).
 
-    TC, LCC and clustering share a single per-edge cardinality pass. Returns
+    TC, LCC and clustering share a single per-edge cardinality pass; the
+    clique counts reuse the same sketch. Returns
     ``{"build": (sketch_bytes, seconds), algo: (value, seconds), ...}``;
     every time ends with the device's work done.
     """
@@ -47,6 +49,8 @@ def mine_session(graph: G.Graph, algos: list[str], storage_budget: float = 0.25,
     runners = {
         "tc": lambda: float(sess.triangle_count()),
         "lcc": lambda: float(torch.mean(sess.local_clustering())),
+        "4clique": lambda: float(sess.four_clique_count()),
+        "cliques5": lambda: float(sess.five_clique_count()),
         "jp": lambda: int(sess.jarvis_patrick("jaccard", 0.05)[1]),
     }
     for name in algos:

@@ -125,7 +125,7 @@ def test_mine_session_reproduces_reference(sessions):
     for algo in ("tc", "lcc"):
         np.testing.assert_allclose(got[algo][0], ref[algo][0], rtol=1e-5)
     with pytest.raises(SystemExit):
-        TM.mine_session(tg, ["4clique"], device=CPU)
+        TM.mine_session(tg, ["localcluster"], device=CPU)
 
 
 def test_mine_cli_prints_session_json(capsys):

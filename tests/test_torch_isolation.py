@@ -19,7 +19,8 @@ import torch
 from repro_torch import engine as TE
 from repro_torch.core import graph as TG
 from repro_torch.engine import setexpr as TX
-from repro_torch.kernels import _build, fused_expr, mh_intersect, ops, program
+from repro_torch.kernels import (_build, flash_attention, fused_expr,
+                                 mh_intersect, ops, program)
 
 ROOT = Path(__file__).resolve().parents[1]
 ENV = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
@@ -78,6 +79,10 @@ def test_use_kernel_on_cpu_tensors_raises():
     assert sess.plan.degree_order is True
     with pytest.raises(ValueError, match="use_kernel=True needs CUDA"):
         sess.edge_cardinalities()
+    with pytest.raises(ValueError, match="use_kernel=True needs CUDA"):
+        sess.four_clique_count()
+    with pytest.raises(ValueError, match="use_kernel=True needs CUDA"):
+        sess.five_clique_count()
     ce = TX.compile_expr(TX.and_all(*TX.rows(2)), use_kernel=True)
     data = torch.zeros((3, 2), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
@@ -108,7 +113,7 @@ def test_build_command_and_library_names():
     assert path.name.startswith("fused_expr-") and path.suffix == ".so"
     assert _build.BUILD_DIR.relative_to(ROOT).parts[0] == "build"
     assert (ROOT / "src/repro_torch/kernels/csrc/fused_expr.cu").exists()
-    for name in ("fused_expr", "mh_intersect"):
+    for name in ("fused_expr", "mh_intersect", "flash_attention"):
         assert (ROOT / "src/repro_torch/kernels/csrc" /
                 _build.SOURCES[name]).exists()
         assert _build.library_path(name).name.startswith(f"{name}-")
@@ -167,6 +172,15 @@ def test_cpu_path_counts_no_launches():
               .triangle_count())
     assert mh_intersect.LAUNCHES == before_mh
     assert fused_expr.FORM_LAUNCHES == forms
+    float(TE.session(g, "bf", device="cpu").five_clique_count())
+    float(TE.session(g, "kh", device="cpu").four_clique_count())
+    before_fa = dict(flash_attention.LAUNCHES)
+    q = torch.zeros((1, 5, 2, 8))
+    flash_attention.flash_attention(q, q, q)
+    flash_attention.flash_attention_folded(q[0], q[0], q[0], groups=1)
+    assert flash_attention.LAUNCHES == before_fa
+    assert fused_expr.LAUNCHES == before
+    assert mh_intersect.LAUNCHES == before_mh
 
 
 def _run_smoke(cwd: Path):

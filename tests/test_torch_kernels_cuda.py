@@ -8,7 +8,12 @@ port is installed:
     PYTHONPATH=src python -m pytest --noconftest -q -m cuda \
         tests/test_torch_kernels_cuda.py
 
-Popcounts are integers: kernel and plain version must be equal.
+Popcounts are integers: kernel and plain version must be equal. The
+attention kernel computes in float32 like its plain version but sums in
+another order: float32 outputs agree within atol = rtol = 2e-5 (the
+reference's own kernel tolerance), bfloat16 outputs within rtol 1e-2,
+atol 1e-3 (one bfloat16 rounding of the output, at most 2^-8 of it, on
+top of that).
 """
 import pytest
 import torch
@@ -16,7 +21,10 @@ import torch
 from repro_torch import engine as TE
 from repro_torch.core import graph as TG
 from repro_torch.engine import setexpr
-from repro_torch.kernels import fused_expr, mh_intersect, ops, program, ref
+from repro_torch.core.algorithms import cliques
+from repro_torch.kernels import (flash_attention, fused_expr, mh_intersect,
+                                 ops, program, ref)
+from repro_torch.obs.metrics import REGISTRY
 
 pytestmark = pytest.mark.cuda
 
@@ -171,3 +179,113 @@ def test_minhash_kernels_reject_bad_operands(cuda):
         with pytest.raises(ValueError):
             mh_intersect.khash_match_pairs(a, bad, 5)
     assert mh_intersect.LAUNCHES == before
+
+
+_ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
+             torch.bfloat16: dict(atol=1e-3, rtol=1e-2)}
+
+
+def _qkv(gen, device, dtype, b, sq, skv, h, kv, d):
+    def draw(s, heads):
+        return torch.randn((b, s, heads, d), device=device,
+                           generator=gen).to(dtype)
+    return draw(sq, h), draw(skv, kv), draw(skv, kv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 64, 120, 128, 256])
+@pytest.mark.parametrize("h,kv", [(2, 2), (4, 2), (4, 1)])
+@pytest.mark.parametrize("s,window", [(1, 0), (97, 8), (1000, 0),
+                                      (1000, 4096), (300, 1)])
+def test_flash_kernel_equals_plain_version(cuda, dtype, d, h, kv, s, window):
+    """MHA, GQA and MQA, head dims below, at and above a warp (120 is no
+    multiple of 32; 256 needs > 48 KB of shared memory), ragged S, with
+    and without a window: the kernel equals the plain version, in q's
+    dtype, and counts one launch."""
+    gen = torch.Generator(device=cuda).manual_seed(d * 1009 + s + window)
+    q, k, v = _qkv(gen, cuda, dtype, 2, s, s, h, kv, d)
+    before = flash_attention.LAUNCHES["flash_attention"]
+    got = flash_attention.flash_attention(q, k, v, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert flash_attention.LAUNCHES["flash_attention"] == before + 1
+    want = ref.causal_attention(q, k, v, window)
+    torch.testing.assert_close(got.float(), want.float(), **_ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("sq,skv,window", [(200, 70, 0), (70, 200, 0),
+                                           (200, 70, 8), (130, 1, 3),
+                                           (1, 130, 0)])
+def test_flash_folded_ragged_and_keyless_rows(cuda, sq, skv, window):
+    """The folded layout with Sq != Skv: rows past Skv + window see no key
+    and average every value, as the reference's softmax gives."""
+    gen = torch.Generator(device=cuda).manual_seed(sq * 7 + skv)
+    q = torch.randn((6, sq, 40), device=cuda, generator=gen)
+    k = torch.randn((3, skv, 40), device=cuda, generator=gen)
+    v = torch.randn((3, skv, 40), device=cuda, generator=gen)
+    got = flash_attention.flash_attention_folded(q, k, v, groups=2,
+                                                 window=window)
+    want = ref.flash_attention_folded(q, k, v, groups=2, window=window)
+    torch.testing.assert_close(got, want, **_ATTN_TOL[torch.float32])
+
+
+def test_flash_reads_strided_inputs(cuda):
+    """Non-contiguous heads (a slice of a wider tensor) are read in place
+    through their strides; the result equals the contiguous inputs'."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    wide = torch.randn((2, 333, 12, 64), device=cuda, generator=gen)
+    q, k, v = wide[:, :, 0:8], wide[:, :, 8:10], wide[:, :, 10:12]
+    assert not q.is_contiguous()
+    got = flash_attention.flash_attention(q, k, v, window=50)
+    want = flash_attention.flash_attention(q.contiguous(), k.contiguous(),
+                                           v.contiguous(), window=50)
+    assert torch.equal(got, want)
+
+
+def test_flash_rejects_bad_operands(cuda):
+    """Wrong types, devices, head dims or windows raise before a launch."""
+    q = torch.zeros((1, 8, 2, 16), device=cuda)
+    before = dict(flash_attention.LAUNCHES)
+    for args, kw in (((q, q.cpu(), q), {}), ((q, q.half(), q.half()), {}),
+                     ((q.half(),) * 3, {}), ((q, q, q), {"window": -1}),
+                     ((torch.zeros((1, 8, 2, 300), device=cuda),) * 3, {}),
+                     ((q, q[:, :, :1].expand(1, 8, 3, 16),
+                       q[:, :, :1].expand(1, 8, 3, 16)), {})):
+        with pytest.raises(ValueError):
+            flash_attention.flash_attention(*args, **kw)
+    assert flash_attention.LAUNCHES == before
+
+
+def test_clique_kernel_path_equals_plain_path(cuda, monkeypatch):
+    """Bloom 4- and 5-cliques and the k-Hash 4-clique on the card launch
+    the AND3 / AND4 gather kernel (k-Hash: the aligned-match kernel) and
+    equal the plain path bit for bit: the same integer popcounts and
+    match counts feed the same float ops in the same order."""
+    g = TG.kronecker(11, 16, seed=1, device=cuda)
+    sess = TE.session(g, "bf", storage_budget=0.5, device=cuda)
+    plain = TE.MiningSession(g, sess.sketch,
+                             sess.plan.with_(use_kernel=False))
+    # small pieces: several launches of tuples per pass
+    monkeypatch.setattr(cliques, "_CHUNK_CANDIDATES", 1 << 16)
+    for method, form in (("four_clique_count", "gather/and3"),
+                         ("five_clique_count", "gather/and4")):
+        fused_expr.reset_launch_counts()
+        got = getattr(sess, method)()
+        assert fused_expr.FORM_LAUNCHES.get(form, 0) >= 2
+        tuples = REGISTRY.gauge("clique_triangles").value
+        assert tuples > 0
+        assert torch.equal(got, getattr(plain, method)())
+    kh = TE.session(g, "kh", storage_budget=0.5, device=cuda)
+    mh_intersect.reset_launch_counts()
+    got = kh.four_clique_count()
+    assert mh_intersect.LAUNCHES["khash_match_pairs"] >= 3
+    assert torch.equal(got, TE.MiningSession(
+        g, kh.sketch, kh.plan.with_(use_kernel=False)).four_clique_count())
+
+
+def test_clique_exact_counts_on_the_card(cuda):
+    """The exact branch on the card equals the brute-force oracle."""
+    g = TG.kronecker(8, 16, seed=1, device=cuda)
+    want = TG.four_clique_count_bruteforce(g)
+    assert float(cliques.four_clique_count(g)) == float(want)
+    assert float(TE.session(g, None, device=cuda).four_clique_count()) == \
+        float(want)
