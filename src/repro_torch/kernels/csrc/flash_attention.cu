@@ -1,5 +1,6 @@
 // Causal (optionally sliding-window) GQA attention forward for Hopper
-// (sm_90a), with an online softmax.
+// (sm_90a) on float32 inputs, with an online softmax on the CUDA cores.
+// bfloat16 inputs go to the tensor-core kernel of flash_attention_wgmma.cu.
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/flash_attention.py:
 // flash_attention_folded (body _fa_kernel), called through its wrapper
@@ -9,7 +10,7 @@
 //     window (kv_pos > q_pos - window); masked scores are -1e30;
 //   * GQA/MQA: query head i reads kv head i / groups;
 //   * fp32 running max, denominator and accumulator; out = acc /
-//     max(l, 1e-30), stored in the input type (float32 or bfloat16).
+//     max(l, 1e-30).
 // Unlike the reference, which visits only skv / block_kv full kv blocks
 // and so drops the keys of a ragged tail, every key is attended.
 //
@@ -17,15 +18,16 @@
 // pair it attends and moves only Q, K, V and O, so at the repo's prefill
 // shapes (S = 8K..32K, D = 120..256) it sits far above the card's
 // operations-per-byte balance. The least time is the attended pairs'
-// flops over the bf16 tensor-core rate. This kernel runs its products on
-// the fp32 cores (no tensor cores yet), so it cannot come near that bound.
+// flops over the peak rate of the inputs' type: for float32 the 67
+// TFLOP/s of the fp32 cores, where this kernel runs both products (TF32
+// tensor cores would break the reference's fp32 parity of 2e-5).
 //
-// Design (simple first; wgmma, TMA and warp specialisation come later):
+// Design (simple first):
 //   * One block of 256 threads per (head, tile of 64 queries). The grid is
 //     1-D and hands out the last query tiles first: under a causal mask
 //     they have the most keys, so the long blocks start early.
-//   * The Q tile (pre-scaled) and each 64-key K and V tile are converted to
-//     fp32 and staged in shared memory, zero-padded to Dp = 16·2^j >= D
+//   * The Q tile (pre-scaled) and each 64-key K and V tile are staged in
+//     shared memory, zero-padded to Dp = 16·2^j >= D
 //     (Dp up to 256; above 48 KB the block's dynamic shared memory is
 //     raised with cudaFuncSetAttribute). Q and K rows have an odd stride,
 //     so the 16 threads of a row group read 16 different banks.
@@ -47,7 +49,6 @@
 //        interface, loaded with ctypes; the entry point returns the
 //        cudaError_t of its launch.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -76,26 +77,13 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's cast
-}
-
 template <int NJ>
 constexpr int smem_floats() {
   constexpr int Dp = 16 * NJ;
   return kBQ * (Dp + 1) + kBKV * (Dp + 1) + kBKV * Dp + kBQ * kPS;
 }
 
-template <typename T, int NJ>
+template <int NJ>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const Params p) {
   constexpr int Dp = 16 * NJ;
@@ -113,23 +101,23 @@ flash_fwd_kernel(const Params p) {
   const int q0 = qt * kBQ;
   const int kv_head = head / p.groups;
 
-  const T* q = static_cast<const T*>(p.q) +
+  const float* q = static_cast<const float*>(p.q) +
                (long long)(head / p.heads_q) * p.q_b +
                (long long)(head % p.heads_q) * p.q_h;
-  const T* k = static_cast<const T*>(p.k) +
+  const float* k = static_cast<const float*>(p.k) +
                (long long)(kv_head / p.heads_kv) * p.k_b +
                (long long)(kv_head % p.heads_kv) * p.k_h;
-  const T* v = static_cast<const T*>(p.v) +
+  const float* v = static_cast<const float*>(p.v) +
                (long long)(kv_head / p.heads_kv) * p.v_b +
                (long long)(kv_head % p.heads_kv) * p.v_h;
-  T* o = static_cast<T*>(p.o) + (long long)(head / p.heads_q) * p.o_b +
+  float* o = static_cast<float*>(p.o) + (long long)(head / p.heads_q) * p.o_b +
          (long long)(head % p.heads_q) * p.o_h;
 
   for (int i = threadIdx.x; i < kBQ * Dp; i += kThreads) {
     const int r = i / Dp, c = i % Dp;
     const int pos = q0 + r;
     float x = 0.f;
-    if (pos < p.sq && c < p.d) x = to_f32(q[pos * p.q_s + c]) * p.scale;
+    if (pos < p.sq && c < p.d) x = q[pos * p.q_s + c] * p.scale;
     Qs[r * QS + c] = x;
   }
 
@@ -160,8 +148,8 @@ flash_fwd_kernel(const Params p) {
       const int r = i / Dp, c = i % Dp;
       const int pos = k0 + r;
       const bool in = pos < p.skv && c < p.d;
-      Ks[r * QS + c] = in ? to_f32(k[pos * p.k_s + c]) : 0.f;
-      Vs[r * Dp + c] = in ? to_f32(v[pos * p.v_s + c]) : 0.f;
+      Ks[r * QS + c] = in ? k[pos * p.k_s + c] : 0.f;
+      Vs[r * Dp + c] = in ? v[pos * p.v_s + c] : 0.f;
     }
     __syncthreads();
 
@@ -246,30 +234,29 @@ flash_fwd_kernel(const Params p) {
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int c = tx + 16 * j;
-      if (c < p.d) o[qpos * p.o_s + c] = from_f32<T>(acc[i][j] / den);
+      if (c < p.d) o[qpos * p.o_s + c] = acc[i][j] / den;
     }
   }
 }
 
-template <typename T, int NJ>
+template <int NJ>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   const int bytes = smem_floats<NJ>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return err;
   const long long blocks = (long long)p.bh * p.q_tiles;
-  flash_fwd_kernel<T, NJ><<<(unsigned)blocks, kThreads, bytes, stream>>>(p);
+  flash_fwd_kernel<NJ><<<(unsigned)blocks, kThreads, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch(const Params& p, cudaStream_t stream) {
-  if (p.d <= 16) return launch<T, 1>(p, stream);
-  if (p.d <= 32) return launch<T, 2>(p, stream);
-  if (p.d <= 64) return launch<T, 4>(p, stream);
-  if (p.d <= 128) return launch<T, 8>(p, stream);
-  return launch<T, 16>(p, stream);
+  if (p.d <= 16) return launch<1>(p, stream);
+  if (p.d <= 32) return launch<2>(p, stream);
+  if (p.d <= 64) return launch<4>(p, stream);
+  if (p.d <= 128) return launch<8>(p, stream);
+  return launch<16>(p, stream);
 }
 
 }  // namespace
@@ -280,12 +267,12 @@ const char* pg_flash_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// q, k, v, o: device pointers; dtype 0 = float32, 1 = bfloat16.
+// q, k, v, o: device pointers to float32.
 // strides: 12 element strides, (batch, head, position) of q, k, v and o;
 // the head dim is contiguous. Query head `h` of `bh` = batch·heads_q
 // reads kv head h / groups of batch·heads_kv.
 int pg_flash_attention(const void* q, const void* k, const void* v, void* o,
-                       int dtype, int bh, int sq, int skv, int d,
+                       int bh, int sq, int skv, int d,
                        int heads_q, int heads_kv, int groups, int window,
                        float scale, const long long* strides, void* stream) {
   if (bh < 1 || sq < 1 || skv < 1 || d < 1 || d > 256 || heads_q < 1 ||
@@ -313,10 +300,7 @@ int pg_flash_attention(const void* q, const void* k, const void* v, void* o,
   p.scale = scale;
   if ((long long)bh * p.q_tiles > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch<float>(p, s);
-  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(p, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)dispatch(p, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

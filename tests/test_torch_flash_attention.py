@@ -9,6 +9,8 @@ own: atol = rtol = 2e-5 in float32 (sums in another order), atol 3e-2 in
 bfloat16. The CUDA kernel is held against this plain version on the card
 (``tests/test_torch_kernels_cuda.py``, ``chip_smoke.py``).
 """
+import math
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -157,3 +159,90 @@ def test_wrappers_validate_inputs():
     before = dict(TF.LAUNCHES)
     TF.flash_attention(q, q[:, :, :2], q[:, :, :2])
     assert TF.LAUNCHES == before
+
+
+def _emulate_tensor_core_kernel(q, k, v, window):
+    """The arithmetic of ``csrc/flash_attention_wgmma.cu`` in plain torch
+    (CPU, float32 with bf16 roundings where the kernel rounds): kv tiles of
+    128 keys (64 at D > 128), scores scaled by log2(e)/sqrt(D) for exp2,
+    -1e30 where masked, the online softmax, P rounded to bfloat16 before
+    P·V, l summed from the fp32 P, the output rounded to bfloat16. Every
+    query row visits every tile; a fully masked tile changes nothing for a
+    row that sees a key, and a row that sees none averages every value,
+    as in the kernel. Only this test uses it."""
+    b, sq, h, d = q.shape
+    skv, g = k.shape[1], h // k.shape[2]
+    bkv = 64 if d > 128 else 128
+    qf = q.float().permute(0, 2, 1, 3)
+    kf, vf = (x.float().repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
+              for x in (k, v))
+    m = torch.full((b, h, sq, 1), TR.NEG_INF)
+    l = torch.zeros((b, h, sq, 1))
+    acc = torch.zeros((b, h, sq, d))
+    qpos = torch.arange(sq)[:, None]
+    for k0 in range(0, skv, bkv):
+        kpos = torch.arange(k0, min(skv, k0 + bkv))[None, :]
+        s = qf @ kf[:, :, k0:k0 + bkv].transpose(-1, -2) * (
+            math.log2(math.e) / math.sqrt(d))
+        seen = kpos <= qpos
+        if window:
+            seen &= kpos > qpos - window
+        s = torch.where(seen, s, TR.NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + p.to(torch.bfloat16).float() @ vf[:, :,
+                                                              k0:k0 + bkv]
+        m = m_new
+    out = acc / l.clamp_min(1e-30)
+    return out.permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", [16, 64, 120, 128, 256])
+@pytest.mark.parametrize("h,kv", [(4, 4), (4, 2), (4, 1)])
+def test_bf16_tensor_core_arithmetic_within_restated_bound(d, h, kv):
+    """The bfloat16 kernel's arithmetic (P rounded to bf16 before P·V)
+    stays within the restated bf16 tolerance of the plain version: atol
+    1e-3 + 2^-8·max|v| (twice the 2^-9·max|v| that a bf16 P can move an
+    output), rtol 1e-2, and a mean error of at most 1e-3; over windows
+    0/8/4096, a few-key prefix (the first rows see 1..8 keys), and Sq >
+    Skv with rows that see no key."""
+    for sq, skv, window in ((200, 200, 0), (200, 200, 8), (150, 150, 4096),
+                            (150, 40, 8)):
+        rng = np.random.default_rng(d * 31 + h * 7 + kv + sq + window)
+        q, k, v = (torch.from_numpy(rng.normal(size=(1, s, n, d)).astype(
+            np.float32)).to(torch.bfloat16)
+            for s, n in ((sq, h), (skv, kv), (skv, kv)))
+        got = _emulate_tensor_core_kernel(q, k, v, window).float()
+        want = TR.causal_attention(q, k, v, window).float()
+        atol = 1e-3 + 2.0 ** -8 * float(v.float().abs().max())
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=atol,
+                                   rtol=1e-2)
+        assert float((got - want).abs().mean()) <= 1e-3
+
+
+def test_tma_layout_preparation():
+    """bfloat16 inputs that TMA can read (last dim contiguous and a
+    multiple of 8, base and longer-than-1 strides multiples of 16 bytes)
+    are used in place, heads sliced from a wider tensor included; others
+    become a contiguous copy, zero-padded to a multiple of 8 in D."""
+    wide = torch.randn((2, 33, 12, 64)).to(torch.bfloat16)
+    for x in (wide, wide[:, :, 8:10], wide[:, :, 1:3], wide[:, :1, :1]):
+        assert TF.tma_ready(x) and TF.tma_operand(x) is x
+    odd = torch.randn((2, 33, 4, 100)).to(torch.bfloat16)
+    padded = TF.tma_operand(odd)
+    assert not TF.tma_ready(odd) and padded.shape == (2, 33, 4, 104)
+    assert padded.is_contiguous() and TF.tma_ready(padded)
+    assert torch.equal(padded[..., :100], odd)
+    assert not padded[..., 100:].any()
+    misfits = [
+        torch.randn((2, 33, 4, 68)).to(torch.bfloat16)[..., :64],  # 136 B
+        wide.flatten()[1:1 + 33 * 4 * 64].view(1, 33, 4, 64),  # base + 2 B
+        wide[:, :, :1].expand(2, 33, 4, 64),                   # stride 0
+        torch.randn((2, 33, 64, 16)).to(torch.bfloat16).transpose(2, 3),
+    ]
+    for x in misfits:
+        got = TF.tma_operand(x)
+        assert not TF.tma_ready(x) and TF.tma_ready(got)
+        assert got.is_contiguous() and torch.equal(got, x)

@@ -113,7 +113,8 @@ def test_build_command_and_library_names():
     assert path.name.startswith("fused_expr-") and path.suffix == ".so"
     assert _build.BUILD_DIR.relative_to(ROOT).parts[0] == "build"
     assert (ROOT / "src/repro_torch/kernels/csrc/fused_expr.cu").exists()
-    for name in ("fused_expr", "mh_intersect", "flash_attention"):
+    for name in ("fused_expr", "mh_intersect", "flash_attention",
+                 "flash_attention_wgmma"):
         assert (ROOT / "src/repro_torch/kernels/csrc" /
                 _build.SOURCES[name]).exists()
         assert _build.library_path(name).name.startswith(f"{name}-")
@@ -175,10 +176,13 @@ def test_cpu_path_counts_no_launches():
     float(TE.session(g, "bf", device="cpu").five_clique_count())
     float(TE.session(g, "kh", device="cpu").four_clique_count())
     before_fa = dict(flash_attention.LAUNCHES)
+    routes = dict(flash_attention.ROUTE_LAUNCHES)
     q = torch.zeros((1, 5, 2, 8))
-    flash_attention.flash_attention(q, q, q)
-    flash_attention.flash_attention_folded(q[0], q[0], q[0], groups=1)
+    for x in (q, q.to(torch.bfloat16)):
+        flash_attention.flash_attention(x, x, x)
+        flash_attention.flash_attention_folded(x[0], x[0], x[0], groups=1)
     assert flash_attention.LAUNCHES == before_fa
+    assert flash_attention.ROUTE_LAUNCHES == routes
     assert fused_expr.LAUNCHES == before
     assert mh_intersect.LAUNCHES == before_mh
 

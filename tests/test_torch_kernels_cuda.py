@@ -9,11 +9,14 @@ port is installed:
         tests/test_torch_kernels_cuda.py
 
 Popcounts are integers: kernel and plain version must be equal. The
-attention kernel computes in float32 like its plain version but sums in
-another order: float32 outputs agree within atol = rtol = 2e-5 (the
-reference's own kernel tolerance), bfloat16 outputs within rtol 1e-2,
-atol 1e-3 (one bfloat16 rounding of the output, at most 2^-8 of it, on
-top of that).
+float32 attention kernel computes in float32 like its plain version but
+sums in another order: it agrees within atol = rtol = 2e-5 (the
+reference's own kernel tolerance). The bfloat16 kernel rounds the
+unnormalised P to bf16 before P·V on the tensor cores (l is summed from
+the fp32 P), which moves an output by at most 2^-9·max|v|: it agrees
+within atol = 1e-3 + 2^-8·max|v| (twice that bound, for the accumulation
+order and where the scale is applied, on top of one bf16 rounding of the
+output), rtol 1e-2, and a mean error of at most 1e-3.
 """
 import pytest
 import torch
@@ -183,6 +186,18 @@ def test_minhash_kernels_reject_bad_operands(cuda):
 
 _ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
              torch.bfloat16: dict(atol=1e-3, rtol=1e-2)}
+_ROUTE = {torch.float32: "fma_fp32", torch.bfloat16: "wgmma_bf16"}
+
+
+def _assert_attn_close(got, want, v):
+    """The dtype's tolerance (module docstring); bfloat16 atol grows with
+    max|v| and its mean error stays <= 1e-3."""
+    tol = dict(_ATTN_TOL[want.dtype])
+    if want.dtype == torch.bfloat16:
+        tol["atol"] += 2.0 ** -8 * float(v.float().abs().max())
+        mean = float((got.float() - want.float()).abs().mean())
+        assert mean <= 1e-3, f"mean |kernel - plain| {mean}"
+    torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
 def _qkv(gen, device, dtype, b, sq, skv, h, kv, d):
@@ -201,15 +216,18 @@ def test_flash_kernel_equals_plain_version(cuda, dtype, d, h, kv, s, window):
     """MHA, GQA and MQA, head dims below, at and above a warp (120 is no
     multiple of 32; 256 needs > 48 KB of shared memory), ragged S, with
     and without a window: the kernel equals the plain version, in q's
-    dtype, and counts one launch."""
+    dtype, and counts one launch on its dtype's route (bfloat16: the
+    wgmma kernel; float32: the CUDA-core kernel)."""
     gen = torch.Generator(device=cuda).manual_seed(d * 1009 + s + window)
     q, k, v = _qkv(gen, cuda, dtype, 2, s, s, h, kv, d)
     before = flash_attention.LAUNCHES["flash_attention"]
+    routes = dict(flash_attention.ROUTE_LAUNCHES)
     got = flash_attention.flash_attention(q, k, v, window=window)
     assert got.dtype == dtype and got.shape == q.shape
     assert flash_attention.LAUNCHES["flash_attention"] == before + 1
-    want = ref.causal_attention(q, k, v, window)
-    torch.testing.assert_close(got.float(), want.float(), **_ATTN_TOL[dtype])
+    routes[_ROUTE[dtype]] += 1
+    assert flash_attention.ROUTE_LAUNCHES == routes
+    _assert_attn_close(got, ref.causal_attention(q, k, v, window), v)
 
 
 @pytest.mark.parametrize("sq,skv,window", [(200, 70, 0), (70, 200, 0),
@@ -226,6 +244,60 @@ def test_flash_folded_ragged_and_keyless_rows(cuda, sq, skv, window):
                                                  window=window)
     want = ref.flash_attention_folded(q, k, v, groups=2, window=window)
     torch.testing.assert_close(got, want, **_ATTN_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("sq,skv,window", [(200, 70, 8), (300, 129, 5),
+                                           (130, 1, 3), (70, 200, 9)])
+def test_flash_bf16_folded_ragged_and_keyless_rows(cuda, sq, skv, window):
+    """The bfloat16 kernel on the folded layout with Sq != Skv and a
+    window: rows past Skv + window see no key and average every value;
+    TMA zero-fills the keys past Skv and the kernel gives them weight 0."""
+    gen = torch.Generator(device=cuda).manual_seed(sq * 11 + skv)
+    q, k, v = (torch.randn((n, s, 64), device=cuda, generator=gen).to(
+        torch.bfloat16) for n, s in ((6, sq), (3, skv), (3, skv)))
+    before = flash_attention.ROUTE_LAUNCHES["wgmma_bf16"]
+    got = flash_attention.flash_attention_folded(q, k, v, groups=2,
+                                                 window=window)
+    assert flash_attention.ROUTE_LAUNCHES["wgmma_bf16"] == before + 1
+    want = ref.flash_attention_folded(q, k, v, groups=2, window=window)
+    _assert_attn_close(got, want, v)
+    if sq > skv + window:
+        mean = v.float().mean(dim=1).repeat_interleave(2, dim=0)
+        _assert_attn_close(got[:, skv + window:],
+                           mean[:, None].expand(-1, sq - skv - window, -1)
+                           .to(torch.bfloat16), v)
+
+
+def test_flash_bf16_pads_head_dim_to_multiple_of_8(cuda):
+    """D = 100 breaks TMA's 16-byte rule: the wrapper runs the kernel on a
+    zero-padded copy (D = 104) and returns D = 100, scaled by 1/sqrt(100),
+    on the same route."""
+    gen = torch.Generator(device=cuda).manual_seed(100)
+    q, k, v = _qkv(gen, cuda, torch.bfloat16, 1, 333, 333, 4, 2, 100)
+    assert not flash_attention.tma_ready(q)
+    before = flash_attention.ROUTE_LAUNCHES["wgmma_bf16"]
+    got = flash_attention.flash_attention(q, k, v, window=40)
+    assert flash_attention.ROUTE_LAUNCHES["wgmma_bf16"] == before + 1
+    assert got.shape == q.shape and got.is_contiguous()
+    _assert_attn_close(got, ref.causal_attention(q, k, v, 40), v)
+
+
+def test_flash_bf16_reads_strided_inputs_deterministically(cuda):
+    """Heads 8:10 and 10:12 of a 12-head tensor (D = 64) meet TMA's rules
+    and are read in place; the kernel has no atomics, so the result equals
+    the contiguous inputs' bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    wide = torch.randn((2, 333, 12, 64), device=cuda,
+                       generator=gen).to(torch.bfloat16)
+    q, k, v = wide[:, :, 0:8], wide[:, :, 8:10], wide[:, :, 10:12]
+    assert not q.is_contiguous()
+    assert all(flash_attention.tma_ready(x) for x in (q, k, v))
+    got = flash_attention.flash_attention(q, k, v, window=50)
+    want = flash_attention.flash_attention(q.contiguous(), k.contiguous(),
+                                           v.contiguous(), window=50)
+    assert torch.equal(got, want)
+    assert torch.equal(got, flash_attention.flash_attention(q, k, v,
+                                                            window=50))
 
 
 def test_flash_reads_strided_inputs(cuda):
