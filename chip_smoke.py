@@ -38,11 +38,15 @@ Phases, each printed as it runs:
      (scale 21; its wedge candidates held to a numpy count from the CSR),
      then on ``kronecker(16, 16, seed=1)`` the Bloom ``five_clique_count()``
      (the AND4 form) and the k-Hash ``four_clique_count()``; each with its
-     launch counts zeroed just before and read just after. Kernel-path
-     popcounts of sampled triangles and 4-cliques, hub edges included,
-     equal the plain path's; the k-Hash count equals the plain path's. The
-     AND3 and AND4 forms are timed on the first launch of their pass
-     (``_LAUNCH_TUPLES`` survivor tuples over the session's sketch).
+     launch counts zeroed just before and read just after; the Bloom
+     passes must launch only the segmented kernel. Kernel-path popcounts
+     of sampled triangles and 4-cliques, hub edges included, equal the
+     plain path's, through segments and through [T, k] tuples; the k-Hash
+     count equals the plain path's. On the first launch of each Bloom pass
+     (up to ``_LAUNCH_TUPLES`` survivor tuples over the session's sketch)
+     the segmented kernel and the [T, k] gather kernel are checked against
+     each other and the plain version and timed in turns, each beside its
+     bound.
   4. Where the time goes: a warm Bloom pass, a Bloom sketch build, a warm
      k-Hash pass and the scale-21 4-clique pass under torch.profiler
      (device busy time, idle share, top kernels).
@@ -781,48 +785,84 @@ def require_same_popcounts(torch, TE, sketch, plan, tuples, what: str):
             "popcounts differ from the plain path")
 
 
-def first_tuples(torch, pieces, t: int):
-    """The first ``t`` rows of an enumeration's pieces, as int32 (fewer
-    if the enumeration ends first)."""
-    got, have = [], 0
-    for piece in pieces:
-        got.append(piece)
-        have += piece.shape[0]
-        if have >= t:
-            break
-    return torch.cat(got)[:t].to(torch.int32).contiguous()
+def require_same_segment_popcounts(torch, TE, sketch, plan, segments,
+                                   what: str) -> int:
+    """Kernel-path popcounts of every launch of ``segments`` (see
+    ``cliques.closed_segments``) equal the plain path's; returns the
+    tuples checked."""
+    from repro_torch.core.algorithms import cliques
+
+    plain, checked = plan.with_(use_kernel=False), 0
+    for segment in segments:
+        for launch in cliques.segment_launches(*segment):
+            got = TE.segment_cardinality_ones(sketch, *launch, plan)
+            want = TE.segment_cardinality_ones(sketch, *launch, plain)
+            require(torch.equal(got, want),
+                    f"{what}: {int((got != want).sum())} of {got.numel()} "
+                    "segmented popcounts differ from the plain path")
+            checked += got.numel()
+    return checked
 
 
-def time_clique_form(torch, kernels, sketch, tuples, flush, what: str
+def time_clique_form(torch, kernels, sketch, segments, flush, what: str
                      ) -> dict:
-    """The gather kernel's k-way AND on one launch of a clique pass's
-    survivor tuples (its first launch): parity with the plain version,
-    then its time beside the plain time and the bound."""
-    from repro_torch.engine import setexpr
-    from repro_torch.kernels import ref
+    """The first launch of a Bloom clique pass: the segmented kernel and
+    the [T, k] gather kernel on the same tuples, checked against each other
+    and the plain version, then timed in turns (gather, segmented,
+    segmented, gather; L2 flushed before each launch) beside the plain
+    time and two bounds: the segmented input's (each row, head, offset,
+    tail and output once) and the [T, k] input's."""
+    from repro_torch.core.algorithms import cliques
+    from repro_torch.kernels import program, ref
 
-    T, k = tuples.shape
+    fe = kernels.fused_expr
+    heads, offsets, tails = next(cliques.segment_launches(*next(segments)))
+    T, k = tails.numel(), heads.shape[1] + 1
     data, W = sketch.data, sketch.data.shape[1]
-    prog = setexpr.compile_program(setexpr.and_all(*setexpr.rows(k)))
-    got = kernels.fused_expr.fused_gather_popcount(data, tuples, prog)
-    want = ref.fused_gather_popcount(data, tuples, prog)
-    require(torch.equal(got, want),
-            f"AND{k} on {what}: {int((got != want).sum())} of {T} popcounts "
-            "differ from the plain version")
-    nbytes = int(torch.unique(tuples).numel()) * W * 4 + T * k * 4 + T * 4
-    ops = T * W * (k + 1)                     # k-1 ANDs, a popcount, an add
-    ms = time_ms(lambda: kernels.fused_expr.fused_gather_popcount(
-        data, tuples, prog), flush, reps=10, warmup=2)
-    plain = time_ms(lambda: ref.fused_gather_popcount(data, tuples, prog),
+    counts = (offsets[1:] - offsets[:-1]).long()
+    tuples = torch.cat([heads.repeat_interleave(counts, 0), tails[:, None]],
+                       dim=1).contiguous()
+    prog = program.and_program(k)
+    got = fe.fused_segment_popcount(data, heads, offsets, tails)
+    gathered = fe.fused_gather_popcount(data, tuples, prog)
+    want = ref.fused_segment_popcount(data, heads, offsets, tails)
+    require(torch.equal(got, want) and torch.equal(gathered, want),
+            f"AND{k} on {what}: {int((got != want).sum())} segmented and "
+            f"{int((gathered != want).sum())} [T, k] popcounts of {T} differ "
+            "from the plain version")
+    used = counts > 0
+    s_used = int(used.sum())
+    rows = torch.unique(torch.cat([heads[used].reshape(-1), tails]))
+    seg_bytes = (rows.numel() * W * 4 + s_used * (k - 1) * 4
+                 + (s_used + 1) * offsets.element_size() + T * 4 + T * 4)
+    tup_bytes = int(torch.unique(tuples).numel()) * W * 4 + T * k * 4 + T * 4
+    # per tail word an AND, a popcount and an add; per head word k-2 ANDs
+    bound, by = bound_ms(seg_bytes, T * W * 3 + s_used * W * (k - 2))
+    bound_tuples, _ = bound_ms(tup_bytes, T * W * (k + 1))
+    seg_call = lambda: fe.fused_segment_popcount(data, heads, offsets, tails)
+    gather_call = lambda: fe.fused_gather_popcount(data, tuples, prog)
+    g1 = time_ms(gather_call, flush, reps=10, warmup=2)
+    s1 = time_ms(seg_call, flush, reps=10, warmup=2)
+    s2 = time_ms(seg_call, flush, reps=10, warmup=2)
+    g2 = time_ms(gather_call, flush, reps=10, warmup=2)
+    ms, gather_ms = (s1 + s2) / 2, (g1 + g2) / 2
+    plain = time_ms(lambda: ref.fused_segment_popcount(data, heads, offsets,
+                                                       tails),
                     flush, reps=5, warmup=1)
-    bound, by = bound_ms(nbytes, ops)
-    timed_at = f"gather AND{k}, T={T} {what}, W={W}"
-    print(f"  AND{k} kernel on one launch of the pass ({timed_at}): "
-          f"{ms:.4f} ms (plain {plain:.4f} ms, bound {bound:.4f} ms by {by}, "
-          f"{nbytes} bytes, {bound / ms:.1%} of bound); popcounts equal the "
-          f"plain version", flush=True)
+    layout = fe.segment_layout(data)
+    timed_at = (f"segment AND{k}, T={T} {what} in {s_used} segments "
+                f"({heads.shape[0]} given), W={W}")
+    print(f"  AND{k} on the first launch of the pass ({timed_at}; layout "
+          f"{layout}): segmented {s1:.4f} / {s2:.4f} ms, [T, k] gather "
+          f"{g1:.4f} / {g2:.4f} ms (in turns), plain {plain:.4f} ms; bound "
+          f"{bound:.4f} ms by {by} ({seg_bytes} bytes, {bound / ms:.1%}), "
+          f"[T, k] input's bound {bound_tuples:.4f} ms ({tup_bytes} bytes, "
+          f"{bound_tuples / gather_ms:.1%} of the gather kernel); popcounts "
+          f"equal each other and the plain version", flush=True)
     return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-                bytes=nbytes, max_abs_err=int((got - want).abs().max()),
+                bytes=seg_bytes, kernel="pg_fused_segment_popcount",
+                gather_ms=gather_ms, bound_ms_tuples=bound_tuples,
+                max_abs_err=int((got - want).abs().max()),
                 library_note=NO_LIBRARY["popcount"], timed_at=timed_at)
 
 
@@ -834,7 +874,7 @@ def phase_cliques(torch, np, TE, TG, kernels, g, sess):
 
     want_wedges = wedge_candidates(np, g)
     r4 = clique_pass(torch, kernels, sess.four_clique_count)
-    and3 = r4["forms"].get("gather/and3", 0)
+    and3 = r4["forms"].get("segment/and3", 0)
     print(f"phase 3c: 4-cliques, scale {SCALE} Bloom session: estimate "
           f"{r4['value']:.6g}; wedge candidates {r4['clique_wedge_candidates']}"
           f" (numpy {want_wedges}); tuples to the kernel "
@@ -845,8 +885,9 @@ def phase_cliques(torch, np, TE, TG, kernels, g, sess):
     require(r4["clique_wedge_candidates"] == want_wedges,
             "4-clique wedge candidates differ from the numpy count")
     require(and3 >= -(-r4["clique_triangles"] // cliques._LAUNCH_TUPLES) > 0
-            and r4["launches"]["fused_gather_popcount"] == and3,
-            f"4-clique pass: {and3} AND3 launches for "
+            and r4["launches"]["fused_segment_popcount"] == and3
+            and r4["launches"]["fused_gather_popcount"] == 0,
+            f"4-clique pass: {and3} segmented AND3 launches for "
             f"{r4['clique_triangles']} tuples ({r4['forms']})")
     require(math.isfinite(r4["value"]) and r4["value"] > 0,
             f"4-clique estimate {r4['value']}")
@@ -855,23 +896,26 @@ def phase_cliques(torch, np, TE, TG, kernels, g, sess):
                                                   edges=sample)))
     require_same_popcounts(torch, TE, sess.sketch, sess.plan,
                            tri[:2_000_000], "scale-21 triangle sample")
+    seg_checked = require_same_segment_popcounts(
+        torch, TE, sess.sketch, sess.plan,
+        cliques.closed_segments(g, sess.sketch, 3, edges=sample),
+        "scale-21 triangle sample")
     print(f"  {min(tri.shape[0], 2_000_000)} triangles of {sample.shape[0]} "
           f"sampled edges (hub edges included): AND3 popcounts equal the "
-          f"plain path", flush=True)
+          f"plain path ([T, k] gather); all {seg_checked} through segments "
+          f"too", flush=True)
     del tri
     flush = make_flush(torch)
     timing = {"bf_edge_intersect3": time_clique_form(
-        torch, kernels, sess.sketch, first_tuples(
-            torch, cliques.closed_triangles(g, sess.sketch),
-            cliques._LAUNCH_TUPLES), flush,
-        f"survivor tuples of the scale-{SCALE} 4-clique pass")}
+        torch, kernels, sess.sketch, cliques.closed_segments(g, sess.sketch),
+        flush, f"survivor tuples of the scale-{SCALE} 4-clique pass")}
 
     t0 = time.perf_counter()
     g16 = TG.kronecker(CLIQUE5_SCALE, 16, seed=1, device="cuda")
     gen_s = time.perf_counter() - t0
     bf16s = TE.session(g16, "bf", storage_budget=1.0, device="cuda")
     r5 = clique_pass(torch, kernels, bf16s.five_clique_count)
-    and4 = r5["forms"].get("gather/and4", 0)
+    and4 = r5["forms"].get("segment/and4", 0)
     print(f"phase 3c: 5-cliques, kronecker({CLIQUE5_SCALE}, 16, seed=1) "
           f"(n={g16.n} m={g16.m}, generated in {gen_s:.1f} s) Bloom "
           f"words={bf16s.sketch.data.shape[1]}: estimate {r5['value']:.6g}; "
@@ -881,8 +925,10 @@ def phase_cliques(torch, np, TE, TG, kernels, g, sess):
           f"{r5['clique_quads']}; AND4 launches {and4}; pass {r5['s']:.3f} s;"
           f" peak device memory {r5['peak_bytes']} bytes", flush=True)
     require(and4 >= -(-r5["clique_quads"] // cliques._LAUNCH_TUPLES) > 0
-            and r5["launches"]["fused_gather_popcount"] == and4,
-            f"5-clique pass: {and4} AND4 launches ({r5['forms']})")
+            and r5["launches"]["fused_segment_popcount"] == and4
+            and r5["launches"]["fused_gather_popcount"] == 0,
+            f"5-clique pass: {and4} segmented AND4 launches "
+            f"({r5['forms']})")
     require(math.isfinite(r5["value"]) and r5["value"] > 0,
             f"5-clique estimate {r5['value']}")
     sample16 = hub_edge_sample(torch, np, g16, per_hub=16, others=1024)
@@ -890,14 +936,18 @@ def phase_cliques(torch, np, TE, TG, kernels, g, sess):
                                                 edges=sample16)))
     require_same_popcounts(torch, TE, bf16s.sketch, bf16s.plan,
                            quads[:2_000_000], "scale-16 4-clique sample")
+    seg_checked = require_same_segment_popcounts(
+        torch, TE, bf16s.sketch, bf16s.plan,
+        cliques.closed_segments(g16, bf16s.sketch, 4, edges=sample16),
+        "scale-16 4-clique sample")
     print(f"  {min(quads.shape[0], 2_000_000)} 4-cliques of "
           f"{sample16.shape[0]} sampled edges (hub edges included): AND4 "
-          f"popcounts equal the plain path", flush=True)
+          f"popcounts equal the plain path ([T, k] gather); all "
+          f"{seg_checked} through segments too", flush=True)
     del quads
     timing["fused_gather_popcount[AND4]"] = time_clique_form(
-        torch, kernels, bf16s.sketch, first_tuples(
-            torch, cliques.closed_quads(g16, bf16s.sketch),
-            cliques._LAUNCH_TUPLES), flush,
+        torch, kernels, bf16s.sketch,
+        cliques.closed_segments(g16, bf16s.sketch, 4), flush,
         f"survivor 4-cliques of the scale-{CLIQUE5_SCALE} 5-clique pass")
     del bf16s, flush
 
@@ -933,7 +983,7 @@ def phase_breakdown(torch, TE, sketches, g, sess, warm_pass_s, build_s,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def run(label, fn, wall_s):
+    def run(label, fn, wall_s, top=6):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -945,7 +995,8 @@ def phase_breakdown(torch, TE, sketches, g, sess, warm_pass_s, build_s,
         print(f"phase 4: {label}: device busy {busy_s * 1e3:.3f} ms of "
               f"{wall_s * 1e3:.1f} ms wall (unprofiled), idle share "
               f"{max(0.0, 1 - busy_s / wall_s):.1%}; top kernels:", flush=True)
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        for e in sorted(kernels,
+                        key=lambda e: -e.self_device_time_total)[:top]:
             print(f"    {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x "
                   f"{e.key[:100]}", flush=True)
         return busy_s
@@ -961,7 +1012,8 @@ def phase_breakdown(torch, TE, sketches, g, sess, warm_pass_s, build_s,
     kh_busy = run("warm k-Hash TC pass", lambda: float(TE.MiningSession(
         g, kh_sess.sketch, kh_sess.plan).triangle_count()), kh_warm_pass_s)
     clique_busy = run(f"4-clique pass (scale {SCALE})",
-                      lambda: float(sess.four_clique_count()), clique_s)
+                      lambda: float(sess.four_clique_count()), clique_s,
+                      top=14)
     return pass_busy, build_busy, kh_busy, clique_busy
 
 
@@ -1252,7 +1304,9 @@ def main() -> None:
     # counted from zero (row 1: the Bloom TC, 4-clique and 5-clique paths;
     # rows 3-6 and the AND4 entry: their form's launches on those paths);
     # rows 1-5 are timed at a TC pass chunk, row 6 and the AND4 entry at
-    # the first launch of their clique pass (``timed_at``)
+    # the first launch of their clique pass (``timed_at``), which runs the
+    # segmented kernel (``kernel``; ``gather_ms`` and ``bound_ms_tuples``
+    # are the [T, k] kernel's time and its input's bound there)
     fused_src = "src/repro_torch/kernels/csrc/fused_expr.cu"
     mh_src = "src/repro_torch/kernels/csrc/mh_intersect.cu"
     gather = (main_path["launches"]["fused_gather_popcount"]
@@ -1297,6 +1351,8 @@ def main() -> None:
         "library_ms": timing[name].get("library_ms"),
         "library_note": timing[name].get("library_note"),
         "timed_at": timing[name]["timed_at"],
+        **{key: timing[name][key] for key in (
+            "kernel", "gather_ms", "bound_ms_tuples") if key in timing[name]},
     } for name, source, replaces, launches in rows]
     print(smi)
     print(json.dumps({"kernels": records}))

@@ -12,8 +12,9 @@ N_u and against each other), then
     cc5 = (1/5) Σ_{4-cliques u<v<w<x} |N_u ∩ N_v ∩ N_w ∩ N_x|.
 
 Intersections: ``exact`` walks the CSR row of least degree and looks the
-others up; ``bf`` is popcount(AND of the Bloom rows), Eq. 2, from the
-compiled k-way AND (the gather kernel on CUDA); ``kh`` (4-cliques only) is
+others up; ``bf`` is popcount(AND of the Bloom rows), Eq. 2, over
+segments that share their first k-1 rows (the segmented kernel on CUDA,
+which reads them once per segment); ``kh`` (4-cliques only) is
 the reference's 3-way aligned-match inclusion–exclusion. The closing tests
 use Bloom membership for a ``bf`` sketch (unless ``exact_closing_test``)
 and an exact edge lookup otherwise.
@@ -24,7 +25,10 @@ Kronecker scale 21 such grids would hold ~3e12 slots. Here the candidates
 w > v of an edge (u, v) are a suffix of v's sorted CSR row, enumerated in
 pieces of about ``_CHUNK_CANDIDATES`` (whole edges); only the closing
 test's survivors go on, to the popcount in launches of at most
-``_LAUNCH_TUPLES`` tuples. The kernels take any tuple count, so nothing is
+``_LAUNCH_TUPLES`` tuples. For ``bf`` a piece's survivors reach the kernel
+as segments: the heads (u, v) per canonical edge, or (u, v, w) per
+triangle, and one tail row per tuple, never as stacked [T, k] tuples. The
+kernels take any tuple count, so nothing is
 padded (the reference's pow2 padding bounds XLA recompiles, which a CUDA
 kernel does not have). Each tuple's value is the reference's — the same
 masks, Bloom false positives of the closing test included — and only the
@@ -59,12 +63,12 @@ _LAUNCH_TUPLES = 1 << 22
 
 
 def _pieces(counts: torch.Tensor, cap: int
-            ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+            ) -> Iterator[Tuple[int, int, torch.Tensor, torch.Tensor]]:
     """Expand items of ``counts[i]`` slots each, in runs of whole items.
 
     Runs hold at most ``cap`` + max(counts) slots. For each run, yields
-    (item, rank) int64 per slot: the slot's item index and its rank
-    within the item.
+    its items i0 <= i < i1 (host ints) and (item, rank) int64 per slot:
+    the slot's item index and its rank within the item.
     """
     if counts.numel() == 0:
         return
@@ -86,7 +90,7 @@ def _pieces(counts: torch.Tensor, cap: int
                 torch.arange(i0, i1, device=dev), counts[i0:i1],
                 output_size=end - base)
             rank = torch.arange(base, end, device=dev) - start[item]
-            yield item, rank
+            yield i0, i1, item, rank
         i0, base = i1, end
 
 
@@ -139,35 +143,90 @@ def _csr(graph: Graph, sketch: Optional[SketchSet],
 def _triangles(csr: _Csr, edges: torch.Tensor, cap: int, stats: dict):
     """Closed wedges of canonical ``edges`` (int[E, 2], u < v), in pieces.
 
-    Yields (edge, u, v, w) int64 per piece: the survivors of the closing
-    test among the candidates w ∈ N_v, w > v, edge-major and w ascending
-    within an edge; every edge's survivors lie in one piece.
+    Yields (lo, hi, edge, w) per piece: the piece's edges lo <= e < hi
+    (host ints) and, int64 per survivor of the closing test among the
+    candidates w ∈ N_v, w > v, its edge index and w, edge-major (``edge``
+    ascending) and w ascending within an edge; every edge's survivors lie
+    in one piece.
     """
     u, v = edges[:, 0].to(torch.int64), edges[:, 1].to(torch.int64)
-    for item, rank in _pieces(csr.up_count[v], cap):
-        uu, vv = u[item], v[item]
-        ww = csr.neighbour(csr.up_first[vv] + rank)
-        keep = torch.nonzero(csr.closes(uu, ww)).squeeze(1)
+    for lo, hi, item, rank in _pieces(csr.up_count[v], cap):
+        ww = csr.neighbour(csr.up_first[v[item]] + rank)
+        keep = torch.nonzero(csr.closes(u[item], ww)).squeeze(1)
         stats["clique_wedge_candidates"] += item.numel()
         stats["clique_triangles"] += keep.numel()
-        yield item[keep], uu[keep], vv[keep], ww[keep]
+        yield lo, hi, item[keep], ww[keep]
 
 
-def _quads(csr: _Csr, triangles, cap: int, stats: dict):
-    """4-cliques u<v<w<x from the pieces of :func:`_triangles`: pairs
-    w < x of one edge's survivors whose (w, x) closes too. Yields int64[Q,
-    4] per piece."""
-    for edge, u, v, w in triangles:
-        # survivors after each one on the same edge (edge is sorted)
-        later = (torch.searchsorted(edge, edge, right=True) - 1
-                 - torch.arange(edge.numel(), device=edge.device))
-        for i, rank in _pieces(later, cap):
-            x = w[i + 1 + rank]
-            keep = torch.nonzero(csr.closes(w[i], x)).squeeze(1)
-            stats["clique_pair_candidates"] += i.numel()
-            stats["clique_quads"] += keep.numel()
-            i = i[keep]
-            yield torch.stack([u[i], v[i], w[i], x[keep]], dim=1)
+def _pairs(csr: _Csr, edge: torch.Tensor, w: torch.Tensor, cap: int,
+           stats: dict):
+    """4-cliques u<v<w<x of one piece (edge, w) of :func:`_triangles`:
+    pairs w < x of one edge's survivors whose (w, x) closes too.
+
+    Yields (lo, hi, i, x) per run: the run's triangles lo <= i < hi of the
+    piece (host ints), and int64 per 4-clique its triangle ``i``
+    (ascending) and x.
+    """
+    # survivors after each one on the same edge (edge is sorted)
+    later = (torch.searchsorted(edge, edge, right=True) - 1
+             - torch.arange(edge.numel(), device=edge.device))
+    for lo, hi, i, rank in _pieces(later, cap):
+        x = w[i + 1 + rank]
+        keep = torch.nonzero(csr.closes(w[i], x)).squeeze(1)
+        stats["clique_pair_candidates"] += i.numel()
+        stats["clique_quads"] += keep.numel()
+        yield lo, hi, i[keep], x[keep]
+
+
+def _stacked_triangles(edges: torch.Tensor, edge: torch.Tensor,
+                       w: torch.Tensor) -> torch.Tensor:
+    """int64[T, 3] (u, v, w) of a piece of :func:`_triangles`."""
+    return torch.cat([edges[edge].to(torch.int64), w[:, None]], dim=1)
+
+
+def _quads(csr: _Csr, edges: torch.Tensor, cap: int, stats: dict):
+    """The 4-cliques of :func:`_pairs` as int64[Q, 4] (u, v, w, x), one
+    piece per run."""
+    for _, _, edge, w in _triangles(csr, edges, cap, stats):
+        tri = _stacked_triangles(edges, edge, w)
+        for _, _, i, x in _pairs(csr, edge, w, cap, stats):
+            yield torch.cat([tri[i], x[:, None]], dim=1)
+
+
+def _offsets(item: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """int64[hi - lo + 1]: where each of the items lo..hi-1 starts in the
+    sorted int64 ``item`` (the end of the last at the end)."""
+    return torch.searchsorted(item, torch.arange(lo, hi + 1,
+                                                 device=item.device))
+
+
+def _triangle_segments(csr: _Csr, edges: torch.Tensor, cap: int,
+                       stats: dict):
+    """The closed triangles of :func:`_triangles` as segments, one per
+    piece: heads int32[E, 2] the piece's edges (u, v), int64 offsets, tails
+    int32 the survivors w."""
+    for lo, hi, edge, w in _triangles(csr, edges, cap, stats):
+        yield edges[lo:hi], _offsets(edge, lo, hi), w.to(torch.int32)
+
+
+def _quad_segments(csr: _Csr, edges: torch.Tensor, cap: int, stats: dict):
+    """The 4-cliques of :func:`_pairs` as segments, one per run: heads
+    int32[R, 3] the run's triangles (u, v, w), int64 offsets, tails int32
+    the closing x."""
+    for _, _, edge, w in _triangles(csr, edges, cap, stats):
+        heads = _stacked_triangles(edges, edge, w).to(torch.int32)
+        for lo, hi, i, x in _pairs(csr, edge, w, cap, stats):
+            yield heads[lo:hi], _offsets(i, lo, hi), x.to(torch.int32)
+
+
+def segment_launches(heads: torch.Tensor, offsets: torch.Tensor,
+                     tails: torch.Tensor):
+    """Cut segments into launches of at most ``_LAUNCH_TUPLES`` tails:
+    yields (heads, offsets, tails) per launch, the offsets clamped to the
+    launch's tails (a launch may cut a segment)."""
+    for s in range(0, tails.shape[0], _LAUNCH_TUPLES):
+        part = tails[s:s + _LAUNCH_TUPLES]
+        yield heads, (offsets - s).clamp_(0, part.shape[0]), part
 
 
 def _stats(*names: str) -> dict:
@@ -185,8 +244,8 @@ def closed_triangles(graph: Graph, sketch: Optional[SketchSet] = None,
     csr = _csr(graph, sketch, exact_closing_test)
     edges = graph.edges if edges is None else edges
     stats = _stats("clique_wedge_candidates", "clique_triangles")
-    for _, u, v, w in _triangles(csr, edges, _CHUNK_CANDIDATES, stats):
-        yield torch.stack([u, v, w], dim=1)
+    for _, _, edge, w in _triangles(csr, edges, _CHUNK_CANDIDATES, stats):
+        yield _stacked_triangles(edges, edge, w)
 
 
 def closed_quads(graph: Graph, sketch: Optional[SketchSet] = None,
@@ -199,8 +258,26 @@ def closed_quads(graph: Graph, sketch: Optional[SketchSet] = None,
     edges = graph.edges if edges is None else edges
     stats = _stats("clique_wedge_candidates", "clique_triangles",
                    "clique_pair_candidates", "clique_quads")
-    yield from _quads(csr, _triangles(csr, edges, _CHUNK_CANDIDATES, stats),
-                      _CHUNK_CANDIDATES, stats)
+    yield from _quads(csr, edges, _CHUNK_CANDIDATES, stats)
+
+
+def closed_segments(graph: Graph, sketch: Optional[SketchSet] = None,
+                    k: int = 3, exact_closing_test: bool = False, *,
+                    edges: Optional[torch.Tensor] = None
+                    ) -> Iterator[Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]]:
+    """The tuples of :func:`closed_triangles` (``k`` = 3) or
+    :func:`closed_quads` (``k`` = 4) as the Bloom passes give them to the
+    popcount: segments (int32 heads[S, k-1], int64 offsets[S+1], int32
+    tails[T]) that share their first k-1 rows, in the same order."""
+    if k not in (3, 4):
+        raise ValueError(f"closed segments of k = 3 or 4, not {k}")
+    csr = _csr(graph, sketch, exact_closing_test)
+    edges = graph.edges if edges is None else edges
+    stats = _stats("clique_wedge_candidates", "clique_triangles",
+                   "clique_pair_candidates", "clique_quads")
+    pieces = _triangle_segments if k == 3 else _quad_segments
+    yield from pieces(csr, edges, _CHUNK_CANDIDATES, stats)
 
 
 def _common_count(csr: _Csr, tuples: torch.Tensor, cap: int
@@ -216,7 +293,7 @@ def _common_count(csr: _Csr, tuples: torch.Tensor, cap: int
     out = torch.zeros(tuples.shape[0], dtype=torch.int64,
                       device=tuples.device)
     indptr = csr.graph.indptr.to(torch.int64)
-    for item, rank in _pieces(deg[pivot], cap):
+    for _, _, item, rank in _pieces(deg[pivot], cap):
         z = csr.neighbour(indptr[pivot[item]] + rank)
         ok = torch.ones_like(z, dtype=torch.bool)
         for j in range(others.shape[1]):
@@ -225,12 +302,19 @@ def _common_count(csr: _Csr, tuples: torch.Tensor, cap: int
     return out
 
 
-def _bloom_values(sketch: SketchSet, tuples: torch.Tensor,
-                  plan: eng.EnginePlan) -> torch.Tensor:
-    """Eq. 2 on popcount(AND of the tuple's Bloom rows): float32[T]."""
-    ones = eng.tuple_cardinality_ones(sketch, tuples.to(torch.int32), plan)
-    return est.bf_intersection_and_from_ones(ones, sketch.total_bits,
-                                             sketch.num_hashes)
+def _fold_segments(sketch: SketchSet, plan: eng.EnginePlan, segments,
+                   total: torch.Tensor) -> torch.Tensor:
+    """``total`` + Σ Eq. 2 on popcount(AND of the Bloom rows) over the
+    tuples of ``segments`` ((heads, offsets, tails) each; see
+    :func:`repro_torch.engine.segment_cardinality_ones`), in the launches
+    of :func:`segment_launches`."""
+    for heads, offsets, tails in segments:
+        for launch in segment_launches(heads, offsets, tails):
+            ones = eng.segment_cardinality_ones(sketch, *launch, plan)
+            total = total + torch.sum(est.bf_intersection_and_from_ones(
+                ones, sketch.total_bits, sketch.num_hashes),
+                dtype=torch.float64)
+    return total
 
 
 def _khash_triple(graph: Graph, sketch: SketchSet, plan: eng.EnginePlan,
@@ -285,21 +369,23 @@ def four_clique_count(graph: Graph, sketch: Optional[SketchSet] = None,
         raise ValueError(f"4-clique not supported for sketch kind {kind}")
     plan = eng.resolve_plan(plan, graph, sketch, kw)
     csr = _csr(graph, sketch, exact_closing_test)
-    if kind == "bf":
-        def values(t):
-            return _bloom_values(sketch, t, plan)
-    elif kind == "kh":
+    if kind == "kh":
         def values(t):
             return _khash_triple(graph, sketch, plan, t[:, 0], t[:, 1],
                                  t[:, 2])
-    else:
+    elif kind == "exact":
         def values(t):
             return _common_count(csr, t, _CHUNK_CANDIDATES)
+    edges = graph.edges
     stats = _stats("clique_wedge_candidates", "clique_triangles")
     total = torch.zeros((), dtype=torch.float64, device=graph.device)
-    for _, u, v, w in _triangles(csr, graph.edges, _CHUNK_CANDIDATES,
-                                 stats):
-        total = _fold(torch.stack([u, v, w], dim=1), values, total)
+    if kind == "bf":
+        total = _fold_segments(sketch, plan, _triangle_segments(
+            csr, edges, _CHUNK_CANDIDATES, stats), total)
+    else:
+        for _, _, edge, w in _triangles(csr, edges, _CHUNK_CANDIDATES,
+                                        stats):
+            total = _fold(_stacked_triangles(edges, edge, w), values, total)
     _publish(stats)
     return (total / 4.0).to(torch.float32)
 
@@ -321,21 +407,22 @@ def five_clique_count(graph: Graph, sketch: Optional[SketchSet] = None,
         raise ValueError(f"5-clique not supported for sketch kind {kind}")
     plan = eng.resolve_plan(plan, graph, sketch, kw)
     csr = _csr(graph, sketch, exact_closing_test)
-    if kind == "bf":
-        def values(t):
-            return _bloom_values(sketch, t, plan)
-    else:
-        def values(t):
-            return _common_count(csr, t, _CHUNK_CANDIDATES)
+
+    def values(t):
+        return _common_count(csr, t, _CHUNK_CANDIDATES)
+    edges = graph.edges
     stats = _stats("clique_wedge_candidates", "clique_triangles",
                    "clique_pair_candidates", "clique_quads")
     total = torch.zeros((), dtype=torch.float64, device=graph.device)
-    triangles = _triangles(csr, graph.edges, _CHUNK_CANDIDATES, stats)
-    for quads in _quads(csr, triangles, _CHUNK_CANDIDATES, stats):
-        total = _fold(quads, values, total)
+    if kind == "bf":
+        total = _fold_segments(sketch, plan, _quad_segments(
+            csr, edges, _CHUNK_CANDIDATES, stats), total)
+    else:
+        for quads in _quads(csr, edges, _CHUNK_CANDIDATES, stats):
+            total = _fold(quads, values, total)
     _publish(stats)
     return (total / 5.0).to(torch.float32)
 
 
-__all__ = ["closed_quads", "closed_triangles", "five_clique_count",
-           "four_clique_count"]
+__all__ = ["closed_quads", "closed_segments", "closed_triangles",
+           "five_clique_count", "four_clique_count", "segment_launches"]

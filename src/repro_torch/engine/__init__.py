@@ -12,6 +12,7 @@ from .engine import (
     edge_cardinalities,
     pair_cardinality_fn,
     resolve_plan,
+    segment_cardinality_ones,
     session,
     sum_edge_cardinalities,
     triple_cardinality_ones,
@@ -26,7 +27,7 @@ __all__ = [
     "EnginePlan", "MiningSession", "api", "edge_cardinalities",
     "fold_edges", "fold_edges_masked", "map_edges", "order_edges_by_hub",
     "pair_cardinality_fn", "plan_for", "pow2_bucket", "resolve_plan",
-    "session", "setexpr", "sum_edge_cardinalities",
+    "segment_cardinality_ones", "session", "setexpr", "sum_edge_cardinalities",
     "triple_cardinality_ones", "tuple_cardinality_ones", "wedge_quad_ones",
     "wedge_triple_ones",
 ]

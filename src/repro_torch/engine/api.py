@@ -12,6 +12,7 @@ from .engine import (
     edge_cardinalities,
     pair_cardinality_fn,
     resolve_plan,
+    segment_cardinality_ones,
     session,
     sum_edge_cardinalities,
     triple_cardinality_ones,
@@ -41,7 +42,8 @@ __all__ = [
     "CompiledSetExpr", "EnginePlan", "MiningSession", "Row", "SetExpr",
     "and_all", "compile_expr", "edge_cardinalities", "fold_edges",
     "map_edges", "or_all", "order_edges_by_hub", "pair_cardinality_fn",
-    "plan_for", "pow2_bucket", "resolve_plan", "rows", "session", "setexpr",
+    "plan_for", "pow2_bucket", "resolve_plan", "rows",
+    "segment_cardinality_ones", "session", "setexpr",
     "sum_edge_cardinalities", "triple_cardinality_ones",
     "tuple_cardinality_ones", "wedge_quad_ones", "wedge_triple_ones",
 ]

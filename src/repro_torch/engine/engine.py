@@ -6,7 +6,9 @@
     map / fold over an edge list with the degree-ordered layout.
   * ``tuple_cardinality_ones`` / ``triple_cardinality_ones`` — the k-way
     popcount provider over row-index tuples, compiled from the k-way AND
-    set expression (``repro_torch.engine.setexpr``); ``wedge_triple_ones``
+    set expression (``repro_torch.engine.setexpr``);
+    ``segment_cardinality_ones`` — the same over tuples grouped by their
+    first k-1 rows (the clique passes' form); ``wedge_triple_ones``
     / ``wedge_quad_ones`` — the same over the reference's wedge grids.
   * ``session`` — build the sketch once (Bloom, k-Hash, 1-Hash or KMV)
     and run TC, LCC, 4- and 5-clique counts, Jarvis–Patrick clustering
@@ -29,7 +31,7 @@ from ..core.estimators import _popcount_words
 from ..core.graph import Graph
 from ..core.intersect import CardFn, make_pair_cardinality_fn
 from ..core.sketches import SketchSet, build as build_sketch
-from ..kernels.ref import gather_rows
+from ..kernels import fused_expr, ref
 from ..obs import trace
 from . import setexpr
 from .plan import (EnginePlan, fold_edges, map_edges, order_edges_by_hub,
@@ -114,6 +116,30 @@ def tuple_cardinality_ones(sketch: SketchSet, tuples: torch.Tensor,
     return ce.ones(sketch.data, tuples)
 
 
+def segment_cardinality_ones(sketch: SketchSet, heads: torch.Tensor,
+                             offsets: torch.Tensor, tails: torch.Tensor,
+                             plan: EnginePlan) -> torch.Tensor:
+    """popcnt(AND of a segment's k-1 head rows and each of its tail rows)
+    per tail — int32[T].
+
+    ``heads`` int32[S, k-1] (k = 2..4), ``offsets`` int32/int64[S+1]
+    ascending from 0 to T, ``tails`` int32[T]: the tuples of
+    :func:`tuple_cardinality_ones`, grouped by their first k-1 rows. The
+    segmented kernel (``plan.use_kernel``) reads each segment's head rows
+    once; the plain version expands the tuples. Identical popcounts.
+    """
+    if sketch.kind != "bf":
+        raise ValueError("segment_cardinality_ones needs a Bloom sketch")
+    if plan.use_kernel:
+        if not sketch.data.is_cuda:
+            raise ValueError(
+                "use_kernel=True needs CUDA tensors; the plain PyTorch path "
+                "is use_kernel=False")
+        return fused_expr.fused_segment_popcount(sketch.data, heads, offsets,
+                                                 tails)
+    return ref.fused_segment_popcount(sketch.data, heads, offsets, tails)
+
+
 def triple_cardinality_ones(sketch: SketchSet, triples: torch.Tensor,
                             plan: EnginePlan) -> torch.Tensor:
     """popcnt(Bu & Bv & Bw) per (u, v, w) triple — int32[T]."""
@@ -129,7 +155,7 @@ def _grid_ones(sketch: SketchSet, cols: list, plan: EnginePlan
 
     The grid providers below keep the reference's signatures and layouts
     for parity with its engine; the port's own clique path enumerates
-    from the CSR and calls :func:`tuple_cardinality_ones` directly."""
+    from the CSR and calls :func:`segment_cardinality_ones`."""
     shape = torch.broadcast_shapes(*(c.shape for c in cols))
     if plan.use_kernel:
         tuples = torch.stack([c.expand(shape).reshape(-1) for c in cols],
@@ -137,7 +163,7 @@ def _grid_ones(sketch: SketchSet, cols: list, plan: EnginePlan
         return tuple_cardinality_ones(sketch, tuples, plan).reshape(shape)
     acc = None
     for c in cols:
-        rows = gather_rows(sketch.data, c.reshape(-1)).reshape(
+        rows = ref.gather_rows(sketch.data, c.reshape(-1)).reshape(
             *c.shape, sketch.data.shape[1])
         acc = rows if acc is None else acc & rows
     return _popcount_words(acc)

@@ -1,11 +1,14 @@
 """Fused set-expression popcount passes over Bloom rows: the CUDA kernels.
 
-Two forms, the port of ``repro.kernels.fused_expr`` (see
+Three forms, the port of ``repro.kernels.fused_expr`` (see
 ``csrc/fused_expr.cu`` for the kernels and their design):
 
   * :func:`fused_gather_popcount` — per tuple, gather the rows its leaves
     name from the int32[n, W] sketch matrix, evaluate the program, popcount.
   * :func:`fused_rows_popcount` — the same over dense int32[E, W] operands.
+  * :func:`fused_segment_popcount` — the k-way AND (k = 2..4) of the gather
+    form for tuples that come in segments sharing their first k-1 rows,
+    which the kernel reads once per segment (the clique passes' launch).
 
 Dispatch follows the tensors: CUDA tensors launch the kernel, CPU tensors
 run the plain version in :mod:`repro_torch.kernels.ref`. On CUDA a build
@@ -14,7 +17,7 @@ or launch failure raises; nothing falls back. Each launch adds one to
 one to :data:`FORM_LAUNCHES` under its form and program (``"gather/and2"``
 is the reference's 2-way gather kernel ``bf_edge_intersect``,
 ``"rows/and3"`` its dense ``bf_intersect3_pairs``, ``".../program"`` any
-other expression).
+other expression, ``"segment/and3"`` a segmented 3-way AND).
 """
 from __future__ import annotations
 
@@ -28,9 +31,15 @@ from .program import MAX_LEAVES, Program
 
 #: kernel launches per wrapper since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {"fused_gather_popcount": 0,
-                            "fused_rows_popcount": 0}
+                            "fused_rows_popcount": 0,
+                            "fused_segment_popcount": 0}
 #: the same launches by form and program (see the module docstring)
 FORM_LAUNCHES: Dict[str, int] = {}
+
+#: tiles of 32 tails each warp of the segmented kernel takes
+SEGMENT_CHUNK_TILES = 8
+#: most segments and tails one segmented launch takes (32-bit positions)
+SEGMENT_MAX_COUNT = 1 << 30
 
 _VOIDP = ctypes.c_void_p
 
@@ -42,10 +51,13 @@ def reset_launch_counts() -> None:
     FORM_LAUNCHES.clear()
 
 
-def _count(name: str, form: str, program: Program) -> None:
+def _count(name: str, key: str) -> None:
     LAUNCHES[name] += 1
-    key = f"{form}/and{program.and_k}" if program.and_k else f"{form}/program"
     FORM_LAUNCHES[key] = FORM_LAUNCHES.get(key, 0) + 1
+
+
+def _form(form: str, program: Program) -> str:
+    return f"{form}/and{program.and_k}" if program.and_k else f"{form}/program"
 
 
 def _lib() -> ctypes.CDLL:
@@ -60,6 +72,13 @@ def _lib() -> ctypes.CDLL:
             _VOIDP, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _VOIDP,
             _VOIDP, _VOIDP]
         lib.pg_fused_rows_popcount.restype = ctypes.c_int
+        lib.pg_fused_segment_popcount.argtypes = [
+            _VOIDP, ctypes.c_longlong, ctypes.c_int, _VOIDP, ctypes.c_int,
+            ctypes.c_longlong, _VOIDP, ctypes.c_int, _VOIDP,
+            ctypes.c_longlong, ctypes.c_int, _VOIDP, _VOIDP]
+        lib.pg_fused_segment_popcount.restype = ctypes.c_int
+        lib.pg_fused_segment_layout.argtypes = [ctypes.c_int, _VOIDP, _VOIDP]
+        lib.pg_fused_segment_layout.restype = None
         lib.pg_error_string.argtypes = [ctypes.c_int]
         lib.pg_error_string.restype = ctypes.c_char_p
     return lib
@@ -120,7 +139,7 @@ def fused_gather_popcount(data: torch.Tensor, tuples: torch.Tensor,
             ctypes.addressof(packed), out.data_ptr(),
             torch.cuda.current_stream(data.device).cuda_stream)
     _check(lib, rc, "fused_gather_popcount")
-    _count("fused_gather_popcount", "gather", program)
+    _count("fused_gather_popcount", _form("gather", program))
     return out
 
 
@@ -161,9 +180,98 @@ def fused_rows_popcount(rows: Sequence[torch.Tensor],
             ctypes.addressof(packed), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _check(lib, rc, "fused_rows_popcount")
-    _count("fused_rows_popcount", "rows", program)
+    _count("fused_rows_popcount", _form("rows", program))
     return out
 
 
-__all__ = ["FORM_LAUNCHES", "LAUNCHES", "fused_gather_popcount",
-           "fused_rows_popcount", "reset_launch_counts"]
+def _check_segments(data: torch.Tensor, heads: torch.Tensor,
+                    offsets: torch.Tensor, tails: torch.Tensor) -> None:
+    """Raise on segment operands the kernel does not take (shapes and
+    types only: nothing here reads device memory)."""
+    if heads.dtype != torch.int32 or heads.dim() != 2 or \
+            not 1 <= heads.shape[1] <= 3:
+        raise ValueError(f"heads must be int32[S, k-1] with k in 2..4, got "
+                         f"{heads.dtype}{list(heads.shape)}")
+    if offsets.dtype not in (torch.int32, torch.int64) or \
+            offsets.shape != (heads.shape[0] + 1,):
+        raise ValueError(f"offsets must be int32 or int64[S+1] = "
+                         f"[{heads.shape[0] + 1}], got "
+                         f"{offsets.dtype}{list(offsets.shape)}")
+    if tails.dtype != torch.int32 or tails.dim() != 1:
+        raise ValueError(f"tails must be int32[T], got "
+                         f"{tails.dtype}{list(tails.shape)}")
+    if heads.shape[0] == 0 and tails.shape[0] > 0:
+        raise ValueError("tails without segments: S = 0 but T > 0")
+    if data.dtype != torch.int32 or data.dim() != 2:
+        raise ValueError(f"data must be int32[rows, words], got "
+                         f"{data.dtype}{list(data.shape)}")
+
+
+def fused_segment_popcount(data: torch.Tensor, heads: torch.Tensor,
+                           offsets: torch.Tensor,
+                           tails: torch.Tensor) -> torch.Tensor:
+    """popcount(B_heads[s,0] & ... & B_heads[s,k-2] & B_tails[t]) per tail:
+    int32[T].
+
+    Args:
+      data:    int32[n, W] sketch matrix (uint32 bit patterns).
+      heads:   int32[S, k-1], k in 2..4: the rows segment s shares.
+      offsets: int32 or int64[S+1], ascending, ``offsets[0] == 0`` and
+               ``offsets[S] == T`` (not checked: that would read the
+               device); segment s owns ``tails[offsets[s]:offsets[s+1]]``,
+               and may be empty.
+      tails:   int32[T]: the last row of each tuple.
+
+    Ids outside [0, n) are clamped to the nearest row. The result equals
+    :func:`fused_gather_popcount` of the k-way AND over the tuples
+    ``cat([heads.repeat_interleave(counts, 0), tails[:, None]], 1)``.
+    """
+    _check_segments(data, heads, offsets, tails)
+    devices = {x.device for x in (data, heads, offsets, tails)}
+    if len(devices) > 1:
+        raise ValueError(f"operands on several devices: "
+                         f"{sorted(map(str, devices))}")
+    if not data.is_cuda:
+        return ref.fused_segment_popcount(data, heads, offsets, tails)
+    for x, what in ((data, "data"), (heads, "heads"), (offsets, "offsets"),
+                    (tails, "tails")):
+        if not x.is_contiguous():
+            raise ValueError(f"{what} must be contiguous")
+    n, w = data.shape
+    s, t = heads.shape[0], tails.shape[0]
+    if max(s, t) > SEGMENT_MAX_COUNT:
+        raise ValueError(f"{s} segments and {t} tails: one launch of the "
+                         f"kernel takes at most {SEGMENT_MAX_COUNT} of each")
+    out = torch.empty(t, dtype=torch.int32, device=data.device)
+    if t == 0:
+        return out
+    if n == 0 or w == 0:
+        raise ValueError("data must have at least one row and one word")
+    k = heads.shape[1] + 1
+    lib = _lib()
+    with torch.cuda.device(data.device):
+        rc = lib.pg_fused_segment_popcount(
+            data.data_ptr(), n, w, heads.data_ptr(), k, s,
+            offsets.data_ptr(), offsets.element_size(), tails.data_ptr(), t,
+            SEGMENT_CHUNK_TILES, out.data_ptr(),
+            torch.cuda.current_stream(data.device).cuda_stream)
+    _check(lib, rc, "fused_segment_popcount")
+    _count("fused_segment_popcount", f"segment/and{k}")
+    return out
+
+
+def segment_layout(data: torch.Tensor) -> Dict[str, int]:
+    """The layout the segmented kernel picks for ``data`` (a CUDA int32[n,
+    W] matrix): words per vector load, lanes per row, cache slots per warp
+    and shared memory bytes per block."""
+    layout = (ctypes.c_int * 4)()
+    _lib().pg_fused_segment_layout(data.shape[1], data.data_ptr(),
+                                   ctypes.addressof(layout))
+    return dict(zip(("vector_words", "lanes_per_row", "slots",
+                     "smem_bytes"), layout))
+
+
+__all__ = ["FORM_LAUNCHES", "LAUNCHES", "SEGMENT_CHUNK_TILES",
+           "SEGMENT_MAX_COUNT",
+           "fused_gather_popcount", "fused_rows_popcount",
+           "fused_segment_popcount", "reset_launch_counts", "segment_layout"]

@@ -14,7 +14,7 @@ from typing import Sequence
 import torch
 
 from ..core.estimators import _popcount_words
-from .program import Program, eval_program
+from .program import Program, and_program, eval_program
 
 
 def gather_rows(data: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -31,6 +31,19 @@ def fused_gather_popcount(data: torch.Tensor, tuples: torch.Tensor,
     """
     leaves = [gather_rows(data, tuples[:, s]) for s in program.slots]
     return _popcount_words(eval_program(program, leaves))
+
+
+def fused_segment_popcount(data: torch.Tensor, heads: torch.Tensor,
+                           offsets: torch.Tensor,
+                           tails: torch.Tensor) -> torch.Tensor:
+    """popcount(AND of a segment's head rows and each of its tail rows):
+    int32[T]. ``heads`` int32[S, k-1], ``offsets`` [S+1] ascending from 0 to
+    T, ``tails`` int32[T]: the heads are repeated over their segments'
+    tails and the k-way AND runs as :func:`fused_gather_popcount`."""
+    counts = (offsets[1:] - offsets[:-1]).long()
+    tuples = torch.cat([heads.repeat_interleave(
+        counts, dim=0, output_size=tails.shape[0]), tails[:, None]], dim=1)
+    return fused_gather_popcount(data, tuples, and_program(tuples.shape[1]))
 
 
 def fused_rows_popcount(rows: Sequence[torch.Tensor],

@@ -160,6 +160,8 @@ def test_cpu_path_counts_no_launches():
     p = program.and_program(2)
     fused_expr.fused_gather_popcount(data, tuples, p)
     fused_expr.fused_rows_popcount([data, data], p)
+    fused_expr.fused_segment_popcount(data, tuples[:, :1], torch.tensor(
+        [0, 1, 2]), tuples[:, 1].contiguous())
     assert fused_expr.LAUNCHES == before
     before_mh = dict(mh_intersect.LAUNCHES)
     forms = dict(fused_expr.FORM_LAUNCHES)
@@ -192,6 +194,20 @@ def _run_smoke(cwd: Path):
                           env={k: v for k, v in os.environ.items()
                                if k != "PYTHONPATH"},
                           capture_output=True, text=True, timeout=120)
+
+
+@pytest.mark.parametrize("script", ["segment_variants.py",
+                                    "clique_passes.py"])
+def test_gpu_scripts_fail_without_gpu(script):
+    """The measurement scripts beside chip_smoke.py refuse to run without
+    a GPU instead of timing the CPU, and print no result."""
+    out = subprocess.run([sys.executable, script], cwd=ROOT,
+                         env={k: v for k, v in os.environ.items()
+                              if k != "PYTHONPATH"},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "needs an NVIDIA GPU" in out.stderr
+    assert out.stdout == ""
 
 
 def test_chip_smoke_fails_without_gpu_and_alone(tmp_path):

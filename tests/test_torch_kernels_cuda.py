@@ -108,6 +108,125 @@ def test_kernel_rejects_cpu_operand_mix(cuda):
         fused_expr.fused_rows_popcount([data, data.cpu()], p)
 
 
+def _segments(gen, device, n: int, k: int, lengths, offset_dtype):
+    """int32 heads[S, k-1], offsets[S+1] and int32 tails[T] on the card;
+    ids drawn from [-3, n + 3), so some clamp."""
+    lengths = torch.tensor(lengths, dtype=torch.int64)
+    heads = torch.randint(-3, n + 3, (lengths.numel(), k - 1),
+                          dtype=torch.int32, device=device, generator=gen)
+    offsets = torch.cat([torch.zeros(1, dtype=torch.int64),
+                         torch.cumsum(lengths, 0)]).to(device, offset_dtype)
+    tails = torch.randint(-3, n + 3, (int(lengths.sum()),),
+                          dtype=torch.int32, device=device, generator=gen)
+    return heads, offsets, tails
+
+
+def _expanded(heads, offsets, tails):
+    counts = (offsets[1:] - offsets[:-1]).long()
+    return torch.cat([heads.repeat_interleave(counts, 0), tails[:, None]],
+                     dim=1)
+
+
+#: segment lengths around a tile (32), a warp's chunk (256) and far beyond
+_SEGMENT_LENGTHS = [0, 1, 255, 256, 257, 0, 0, 31, 32, 33, 100_000, 3, 0, 1]
+
+
+@pytest.mark.parametrize("w", [1, 7, 30, 32, 33, 64, 600, 2000, 4000])
+@pytest.mark.parametrize("k", [2, 3, 4])
+def test_segment_kernel_equals_plain_and_gather_kernel(cuda, k, w):
+    """The segmented kernel equals its plain version and the [T, k] gather
+    kernel on the expanded tuples: segments of 0 to 10^5 tails, runs of
+    empty segments, ids to clamp, int32 and int64 offsets. W = 30 leaves
+    odd rows 8-byte aligned; W = 600 gets 4 cache slots per warp, W = 2000
+    one, W = 4000 none (every tile on the slow path)."""
+    gen = torch.Generator(device=cuda).manual_seed(k * 1009 + w)
+    data = torch.randint(-2**31, 2**31 - 1, (3001, w), dtype=torch.int32,
+                         device=cuda, generator=gen)
+    data[5] = -1
+    lengths = _SEGMENT_LENGTHS + [0] * 300 + [2, 0, 5] * 200 + [700]
+    for offset_dtype in (torch.int32, torch.int64):
+        heads, offsets, tails = _segments(gen, cuda, 3001, k, lengths,
+                                          offset_dtype)
+        before = dict(fused_expr.FORM_LAUNCHES)
+        got = fused_expr.fused_segment_popcount(data, heads, offsets, tails)
+        key = f"segment/and{k}"
+        assert fused_expr.FORM_LAUNCHES.get(key, 0) == before.get(key, 0) + 1
+        want = ref.fused_segment_popcount(data, heads, offsets, tails)
+        assert torch.equal(got, want)
+        tuples = _expanded(heads, offsets, tails).contiguous()
+        assert torch.equal(got, fused_expr.fused_gather_popcount(
+            data, tuples, program.and_program(k)))
+
+
+def test_segment_kernel_vector_widths_and_alignment(cuda):
+    """16-byte loads where W % 4 == 0 and the matrix is 16-byte aligned,
+    8-byte where W is even, else 4-byte: a matrix that starts 4 bytes into
+    its storage reads 4 bytes at a time and gives the same popcounts."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    flat = torch.randint(-2**31, 2**31 - 1, (1 + 500 * 32,),
+                         dtype=torch.int32, device=cuda, generator=gen)
+    aligned = flat[:500 * 32].view(500, 32)
+    shifted = flat[1:].view(500, 32)
+    assert fused_expr.segment_layout(aligned)["vector_words"] == 4
+    assert fused_expr.segment_layout(shifted)["vector_words"] == 1
+    assert fused_expr.segment_layout(aligned[:, :30].contiguous())[
+        "vector_words"] == 2
+    assert fused_expr.segment_layout(aligned)["lanes_per_row"] == 8
+    slots = {w: fused_expr.segment_layout(torch.zeros(
+        (1, w), dtype=torch.int32, device=cuda))["slots"]
+        for w in (32, 600, 2000, 4000)}
+    assert slots == {32: 32, 600: 4, 2000: 1, 4000: 0}
+    heads, offsets, tails = _segments(gen, cuda, 500, 3, [40, 0, 300, 2],
+                                      torch.int64)
+    for data in (aligned, shifted):
+        assert torch.equal(
+            fused_expr.fused_segment_popcount(data, heads, offsets, tails),
+            ref.fused_segment_popcount(data, heads, offsets, tails))
+
+
+def test_segment_kernel_launch_cuts_inside_segments(cuda):
+    """Launches that cut a long segment (offsets clamped to each launch,
+    as the clique passes do) give the popcounts of one launch."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    data = torch.randint(-2**31, 2**31 - 1, (1000, 32), dtype=torch.int32,
+                         device=cuda, generator=gen)
+    heads, offsets, tails = _segments(gen, cuda, 1000, 3,
+                                      [5, 100_000, 0, 77, 1], torch.int64)
+    whole = fused_expr.fused_segment_popcount(data, heads, offsets, tails)
+    assert torch.equal(whole, ref.fused_segment_popcount(data, heads, offsets,
+                                                         tails))
+    for step in (1000, 4099, 65_536):
+        parts = [fused_expr.fused_segment_popcount(
+            data, heads, (offsets - s).clamp(0, tails[s:s + step].numel()),
+            tails[s:s + step]) for s in range(0, tails.numel(), step)]
+        assert torch.equal(torch.cat(parts), whole)
+
+
+def test_segment_kernel_rejects_bad_operands(cuda):
+    """T = 0 launches nothing; device mixes, wrong types and k > 4 raise."""
+    data = torch.zeros((4, 2), dtype=torch.int32, device=cuda)
+    heads = torch.zeros((2, 2), dtype=torch.int32, device=cuda)
+    offsets = torch.tensor([0, 1, 3], device=cuda)
+    tails = torch.zeros(3, dtype=torch.int32, device=cuda)
+    before = dict(fused_expr.LAUNCHES)
+    empty = fused_expr.fused_segment_popcount(data, heads[:0], offsets[:1],
+                                              tails[:0])
+    assert empty.shape == (0,) and empty.is_cuda
+    assert fused_expr.LAUNCHES == before
+    for args in ((data, heads.cpu(), offsets, tails),
+                 (data, heads, offsets.cpu(), tails),
+                 (data.cpu(), heads, offsets, tails),
+                 (data, heads, offsets.float(), tails),
+                 (data, heads.long(), offsets, tails),
+                 (data, heads, offsets, tails.long()),
+                 (data, torch.zeros((2, 4), dtype=torch.int32, device=cuda),
+                  offsets, tails),
+                 (data, heads[:, :1].t(), offsets[:2], tails)):
+        with pytest.raises(ValueError):
+            fused_expr.fused_segment_popcount(*args)
+    assert fused_expr.LAUNCHES == before
+
+
 def _minhash_rows(gen, device, e: int, k: int, sentinel: int):
     """Row pairs drawn from [-40, sentinel + 40): negative ids, pads above
     the sentinel, duplicates; every 13th row all sentinel, and b copying
@@ -329,20 +448,24 @@ def test_flash_rejects_bad_operands(cuda):
 
 def test_clique_kernel_path_equals_plain_path(cuda, monkeypatch):
     """Bloom 4- and 5-cliques and the k-Hash 4-clique on the card launch
-    the AND3 / AND4 gather kernel (k-Hash: the aligned-match kernel) and
-    equal the plain path bit for bit: the same integer popcounts and
-    match counts feed the same float ops in the same order."""
+    the segmented AND3 / AND4 kernel and no [T, k] gather (k-Hash: the
+    aligned-match kernel) and equal the plain path bit for bit: the same
+    integer popcounts and match counts feed the same float ops in the same
+    order."""
     g = TG.kronecker(11, 16, seed=1, device=cuda)
     sess = TE.session(g, "bf", storage_budget=0.5, device=cuda)
     plain = TE.MiningSession(g, sess.sketch,
                              sess.plan.with_(use_kernel=False))
-    # small pieces: several launches of tuples per pass
+    # small pieces and launches: several launches per pass, some of
+    # them cutting a segment
     monkeypatch.setattr(cliques, "_CHUNK_CANDIDATES", 1 << 16)
-    for method, form in (("four_clique_count", "gather/and3"),
-                         ("five_clique_count", "gather/and4")):
+    monkeypatch.setattr(cliques, "_LAUNCH_TUPLES", 1 << 14)
+    for method, form in (("four_clique_count", "segment/and3"),
+                         ("five_clique_count", "segment/and4")):
         fused_expr.reset_launch_counts()
         got = getattr(sess, method)()
         assert fused_expr.FORM_LAUNCHES.get(form, 0) >= 2
+        assert fused_expr.LAUNCHES["fused_gather_popcount"] == 0
         tuples = REGISTRY.gauge("clique_triangles").value
         assert tuples > 0
         assert torch.equal(got, getattr(plain, method)())
