@@ -10,13 +10,18 @@ Phases, each printed as it runs:
   2. Kernels against their plain PyTorch versions on the card (integers:
      equality required). The popcount kernels over AND2/AND3/AND4/OR/
      ANDNOT/nested programs, row widths 2..600 and ragged tuple counts up
-     to ~1M; the MinHash counts over k in {1, 4, 7, 31, 33, 128, 256},
-     ragged row counts up to ~1M and 0, with all-sentinel rows, negative
-     ids and duplicates. Attention by both routes (bfloat16: the wgmma
+     to ~1M; the MinHash counts in both forms (rows: int32[E, k] rows;
+     gather: the sketch matrix and pairs of ids) over k in {1, 4, 7, 24,
+     28, 31, 32, 33, 128, 256}, ragged E up to ~1M and 0, with
+     all-sentinel rows, negative entries, duplicates, out-of-range and
+     negative ids (clamped), and operands whose base is shifted by 4
+     bytes. Attention by both routes (bfloat16: the wgmma
      tensor-core kernel; float32: the CUDA-core kernel), head dims
      16..256, MHA/GQA/MQA, windows 0/8/4096, S in {1, 97, 1000, 4096},
      Sq != Skv and rows that see no key. Then each kernel timed at the
-     main path's shape beside its bound; attention at the repo's
+     main path's shape beside its bound (the MinHash gather forms also
+     beside the old route: two ``index_select`` row copies, then the rows
+     kernel); attention at the repo's
      prefill_32k shapes (qwen3_8b, h2o_danube3_4b, gemma_2b; bf16), driven
      once through ``flash_attention`` with its per-route launch counts
      zeroed before and read after, and timed beside the plain version and
@@ -31,9 +36,10 @@ Phases, each printed as it runs:
   3b. The MinHash path on the same graph: ``session(g, "kh", ...)`` with
      TC, LCC, ``jarvis_patrick("jaccard", 0.05)`` and
      ``edge_similarity("jaccard")``, then ``session(g, "1h", ...,
-     variant="naive")`` with TC; each with its launch counts zeroed just
-     before and read just after, its kernel's match counts on the 1M-edge
-     sample and its TC held against the plain path.
+     variant="naive")`` with TC; each with its launch counts (by form:
+     only the gather form may run) zeroed just before and read just
+     after, its kernel's match counts on the 1M-edge sample (both forms)
+     and its TC held against the plain path.
   3c. Cliques: ``four_clique_count()`` on the phase-3 Bloom session
      (scale 21; its wedge candidates held to a numpy count from the CSR),
      then on ``kronecker(16, 16, seed=1)`` the Bloom ``five_clique_count()``
@@ -46,10 +52,11 @@ Phases, each printed as it runs:
      (up to ``_LAUNCH_TUPLES`` survivor tuples over the session's sketch)
      the segmented kernel and the [T, k] gather kernel are checked against
      each other and the plain version and timed in turns, each beside its
-     bound.
-  4. Where the time goes: a warm Bloom pass, a Bloom sketch build, a warm
-     k-Hash pass and the scale-21 4-clique pass under torch.profiler
-     (device busy time, idle share, top kernels).
+     bound; the k-Hash pass must launch only the rows form of
+     ``khash_match_pairs``, which is timed on the pass's first launch.
+  4. Where the time goes: a warm Bloom pass, a Bloom sketch build, warm
+     k-Hash and 1-Hash-naive passes and the scale-21 4-clique pass under
+     torch.profiler (device busy time, idle share, top kernels).
   5. A scale-12 graph against an independent numpy reference of the same
      definitions: Bloom words, k-Hash, 1-Hash and KMV sketches identical;
      TC (and the Bloom LCC) within rtol 1e-4 of the numpy estimators; the
@@ -66,6 +73,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -100,9 +108,13 @@ NO_LIBRARY = {
 }
 
 #: the card's published peaks (H100 SXM data sheet): HBM bytes/s, and the
-#: 32-bit rate outside the tensor cores, ops/s
+#: float32 rate outside the tensor cores (an FMA counted as two), flop/s
 PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = 67e12
+PEAK_FP32_FLOPS = 67e12
+#: the INT32 rate, for integer operations (compares, bitwise ops,
+#: popcounts, adds): 64 INT32 lanes per SM x 132 SMs x the 1,980 MHz
+#: maximum SM clock, ops/s
+PEAK_INT32_OPS_S = 64 * 132 * 1.98e9
 #: dense bf16 tensor-core rate, flop/s
 PEAK_BF16_FLOPS = 989e12
 
@@ -148,9 +160,10 @@ def time_ms(fn, flush, reps: int = 30, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def bound_ms(nbytes: float, ops: float, peak_ops: float = PEAK_OPS_S
+def bound_ms(nbytes: float, ops: float, peak_ops: float = PEAK_INT32_OPS_S
              ) -> tuple[float, str]:
-    """Least time for the work: max(bytes / HBM rate, ops / peak rate)."""
+    """Least time for the work: max(bytes / HBM rate, ops / peak rate);
+    ``ops`` are integer operations unless another rate is given."""
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -281,54 +294,109 @@ def minhash_rows(torch, gen, e: int, k: int, sentinel: int):
     return a, b
 
 
+def shifted(torch, x):
+    """A copy of contiguous ``x`` whose base lies one word past an
+    allocation's start (4-byte but not 8- or 16-byte aligned)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+#: the MinHash counts: rows form (the TPU kernels' signature) -> gather form
+MINHASH_FORMS = {"mh_intersect_pairs": "mh_intersect_gather",
+                 "khash_match_pairs": "khash_match_gather"}
+
+
 def phase_minhash_kernels(torch, mh_intersect, ref, flush):
-    """Phase 2, MinHash counts: parity over k and ragged E, then timing at
-    the main path's shape (E = 65,536 row pairs, k = 31)."""
+    """Phase 2, MinHash counts, both forms: parity over k and ragged E,
+    then timing at the main path's shape (E = 65,536 pairs, k = 31), with
+    the old route of the TC pass (two row copies, then the rows kernel)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    sentinel = 150
-    names = ("mh_intersect_pairs", "khash_match_pairs")
-    err = dict.fromkeys(names, 0)
-    cases = [(k, e) for k in (1, 4, 7, 31, 33)
+    sentinel, n = 150, 100_003
+    err = {name: 0 for pair in MINHASH_FORMS.items() for name in pair}
+    cases = [(k, e) for k in (1, 4, 7, 24, 28, 31, 32, 33)
              for e in (0, 1, 999, 65_537, 1_000_003)]
     cases += [(k, e) for k in (128, 256) for e in (0, 1, 999, 70_001)]
+    checked = 0
+
+    def check(name, got, want, what):
+        require(got.shape == want.shape and got.dtype == torch.int32,
+                f"{name} {what}: output {got.dtype}{list(got.shape)}")
+        if got.numel():
+            err[name] = max(err[name], int((got - want).abs().max()))
+        require(torch.equal(got, want),
+                f"{name} {what}: {int((got != want).sum())} pairs differ "
+                "from the plain version")
+
     for k, e in cases:
         a, b = minhash_rows(torch, gen, e, k, sentinel)
-        for name in names:
-            got = getattr(mh_intersect, name)(a, b, sentinel)
-            want = getattr(ref, name)(a, b, sentinel)
-            require(got.shape == (e,) and got.dtype == torch.int32,
-                    f"{name} k={k} E={e}: output {got.dtype}"
-                    f"{list(got.shape)}")
-            if e:
-                err[name] = max(err[name], int((got - want).abs().max()))
-            require(torch.equal(got, want),
-                    f"{name} k={k} E={e}: {int((got != want).sum())} rows "
-                    "differ from the plain version")
-        del a, b
+        data, _ = minhash_rows(torch, gen, n, k, sentinel)
+        # ids in [-3, n + 3): negative and past-the-end ids clamp
+        pairs = torch.randint(-3, n + 3, (e, 2), dtype=torch.int32,
+                              device="cuda", generator=gen)
+        pairs[::7, 1] = pairs[::7, 0]
+        for rows_name, gather_name in MINHASH_FORMS.items():
+            what = f"k={k} E={e}"
+            want = getattr(ref, rows_name)(a, b, sentinel)
+            check(rows_name, getattr(mh_intersect, rows_name)(a, b, sentinel),
+                  want, what)
+            check(rows_name, getattr(mh_intersect, rows_name)(
+                shifted(torch, a), b, sentinel), want, what + " (shifted a)")
+            want = getattr(ref, gather_name)(data, pairs, sentinel)
+            for x, how in ((data, ""), (shifted(torch, data), " (shifted)")):
+                check(gather_name, getattr(mh_intersect, gather_name)(
+                    x, pairs, sentinel), want, what + how)
+            checked += 4
+        del a, b, data, pairs
     torch.cuda.synchronize()
     print(f"phase 2: MinHash kernels equal their plain versions on "
-          f"{len(cases) * len(names)} cases ({len(cases)} (k, E) shapes x "
-          f"2 kernels); max_abs_err {err}", flush=True)
+          f"{checked} cases ({len(cases)} (k, E) shapes x 2 counts x rows "
+          f"and gather forms, each aligned and 4-byte shifted); max_abs_err "
+          f"{err}", flush=True)
 
     e, k = 65_536, 31
     a, b = minhash_rows(torch, gen, e, k, sentinel)
-    nbytes = 2 * e * k * 4 + e * 4
+    data, _ = minhash_rows(torch, gen, 1 << 21, k, sentinel)
+    pairs = torch.randint(0, 1 << 21, (e, 2), dtype=torch.int32,
+                          device="cuda", generator=gen)
+    u, v = pairs[:, 0].long(), pairs[:, 1].long()
     timing = {}
-    for name, ops in (("mh_intersect_pairs", e * k * k),
-                      ("khash_match_pairs", e * k)):
-        fn = getattr(mh_intersect, name)
-        plain_fn = getattr(ref, name)
-        ms = time_ms(lambda: fn(a, b, sentinel), flush)
-        plain = time_ms(lambda: plain_fn(a, b, sentinel), flush)
-        bound, by = bound_ms(nbytes, ops)
-        timing[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
-                            bound_by=by, bytes=nbytes, max_abs_err=err[name],
-                            library_note=NO_LIBRARY["minhash"],
-                            timed_at=f"E={e} row pairs, k={k} (a TC pass "
-                                     "chunk)")
-        print(f"  {name}: {ms:.4f} ms (plain {plain:.4f} ms, bound "
-              f"{bound:.4f} ms by {by}, {nbytes} bytes, {ops} compares, "
-              f"{bound / ms:.1%} of bound) at E={e} k={k}", flush=True)
+    for rows_name, gather_name in MINHASH_FORMS.items():
+        ops = e * k * k if rows_name == "mh_intersect_pairs" else e * k
+        rows_fn = getattr(mh_intersect, rows_name)
+        gather_fn = getattr(mh_intersect, gather_name)
+        forms = (
+            (rows_name, lambda: rows_fn(a, b, sentinel),
+             lambda: getattr(ref, rows_name)(a, b, sentinel),
+             2 * e * k * 4 + e * 4, f"E={e} row pairs"),
+            (gather_name, lambda: gather_fn(data, pairs, sentinel),
+             lambda: getattr(ref, gather_name)(data, pairs, sentinel),
+             e * (8 + 2 * k * 4 + 4),
+             f"E={e} pairs by id from a {1 << 21}-row sketch"))
+        for name, fn, plain_fn, nbytes, shape in forms:
+            ms = time_ms(fn, flush)
+            plain = time_ms(plain_fn, flush)
+            bound, by = bound_ms(nbytes, ops)
+            timing[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                                bound_by=by, bytes=nbytes,
+                                max_abs_err=err[name],
+                                library_note=NO_LIBRARY["minhash"],
+                                timed_at=f"{shape}, k={k} (a TC pass "
+                                         "chunk)")
+            extra = ""
+            if name == gather_name:
+                old = time_ms(lambda: rows_fn(data.index_select(0, u),
+                                              data.index_select(0, v),
+                                              sentinel), flush)
+                timing[name]["old_route_ms"] = old
+                extra = (f"; old route (two index_select row copies, then "
+                         f"the rows kernel) {old:.4f} ms")
+            print(f"  {name}: {ms:.4f} ms (plain {plain:.4f} ms, bound "
+                  f"{bound:.4f} ms by {by}, {nbytes} bytes, {ops} compares, "
+                  f"{bound / ms:.1%} of bound) at E={e} k={k}{extra}",
+                  flush=True)
+    del a, b, data, pairs
     return timing
 
 
@@ -529,7 +597,7 @@ def phase_attention(torch, flash_attention, ref, flush, lib_path):
     check(out, ref.causal_attention(q, k, v, window), v, "float32 timing shape")
     flops = 4 * b * h * d * attended_pairs(sq, window)
     nbytes = 4 * (2 * b * sq * h * d + 2 * b * sq * kv * d)
-    bound, by = bound_ms(nbytes, flops, PEAK_OPS_S)
+    bound, by = bound_ms(nbytes, flops, PEAK_FP32_FLOPS)
     ms = time_ms(lambda: flash_attention.flash_attention(
         q, k, v, window=window), flush, reps=5, warmup=1)
     plain = time_ms(lambda: ref.causal_attention(q, k, v, window), flush,
@@ -675,12 +743,13 @@ def phase_minhash(torch, np, TE, kernels, g, chunks: int):
             r["mean_jaccard"] = float(sim.mean())
             r["sim_s"] = time.perf_counter() - t0
         launches = kernels.launch_counts()
+        forms = dict(mh_intersect.FORM_LAUNCHES)
         r["peak_bytes"] = torch.cuda.max_memory_allocated()
-        r["launches"] = launches
+        r["launches"], r["forms"] = launches, forms
         print(f"phase 3b: {label}: k={r['k']} sketch={r['sketch_bytes']} "
               f"bytes build {build_s:.3f} s; pass (TC) {pass_s:.3f} s; "
-              f"TC={tc:.6g}; launches={launches}; peak device memory "
-              f"{r['peak_bytes']} bytes", flush=True)
+              f"TC={tc:.6g}; launches={launches}; by form={forms}; peak "
+              f"device memory {r['peak_bytes']} bytes", flush=True)
         if kind == "kh":
             print(f"  LCC mean {r['mean_lcc']:.6g} ({r['lcc_s']:.3f} s); "
                   f"Jarvis-Patrick (jaccard >= 0.05): {r['clusters']} "
@@ -700,9 +769,10 @@ def phase_minhash(torch, np, TE, kernels, g, chunks: int):
                     "edge Jaccard must lie in [0, 1]")
         require(sess.plan.use_kernel, f"the {label} path must use the kernels")
         require(launches[kernel] == chunks
-                and sum(launches.values()) == chunks,
-                f"{label}: launches {launches}, expected {chunks} of {kernel} "
-                "and no other")
+                and sum(launches.values()) == chunks
+                and forms == {f"{kernel}/gather": chunks},
+                f"{label}: launches {launches} ({forms}), expected {chunks} "
+                f"of {kernel}, all in the gather form, and no other")
         require(math.isfinite(tc) and tc > 0, f"{label} TC {tc}")
 
         # the runs below launch kernels too; they are not counted
@@ -711,11 +781,15 @@ def phase_minhash(torch, np, TE, kernels, g, chunks: int):
         r["warm_pass_s"] = time.perf_counter() - t0
         data, n = sess.sketch.data, sess.sketch.n
         ru, rv = data.index_select(0, u), data.index_select(0, v)
-        got = getattr(mh_intersect, kernel)(ru, rv, n)
         want = getattr(ref, kernel)(ru, rv, n)
-        require(torch.equal(got, want),
-                f"{label}: {int((got != want).sum())} of {u.numel()} sampled "
-                "edges' match counts differ from the plain version")
+        for form, got in (
+                ("rows", getattr(mh_intersect, kernel)(ru, rv, n)),
+                ("gather", getattr(mh_intersect, MINHASH_FORMS[kernel])(
+                    data, g.edges[sample], n))):
+            require(torch.equal(got, want),
+                    f"{label}: {int((got != want).sum())} of {u.numel()} "
+                    f"sampled edges' match counts ({form} form) differ from "
+                    "the plain version")
         t0 = time.perf_counter()
         tc_plain = float(TE.MiningSession(
             g, sess.sketch, sess.plan.with_(use_kernel=False)
@@ -725,7 +799,8 @@ def phase_minhash(torch, np, TE, kernels, g, chunks: int):
                 f"{label} TC {tc} vs plain-path TC {tc_plain}")
         print(f"  warm pass {r['warm_pass_s']:.3f} s = "
               f"{g.m / r['warm_pass_s']:.4g} edges/s; {u.numel()}-edge "
-              f"match-count sample equal to the plain version; plain-path "
+              f"match-count sample (rows and gather forms) equal to the "
+              f"plain version; plain-path "
               f"TC={tc_plain:.6g} (pass {r['plain_pass_s']:.3f} s)",
               flush=True)
         results[label], sessions[label] = r, sess
@@ -866,6 +941,40 @@ def time_clique_form(torch, kernels, sketch, segments, flush, what: str
                 library_note=NO_LIBRARY["popcount"], timed_at=timed_at)
 
 
+def time_khash_clique_launch(torch, kernels, g, sketch) -> dict:
+    """The first launch of the k-Hash 4-clique pass: ``khash_match_pairs``
+    (rows form) on rows u and v of its first piece of triangles, checked
+    against the plain version and timed beside its bound (L2 flushed)."""
+    from repro_torch.core.algorithms import cliques
+    from repro_torch.kernels import ref
+
+    tri = next(cliques.closed_triangles(g, sketch))[:cliques._LAUNCH_TUPLES]
+    mu, mv = (sketch.data.index_select(0, tri[:, c].long()) for c in (0, 1))
+    T, k, n = mu.shape[0], mu.shape[1], g.n
+    fn = kernels.mh_intersect.khash_match_pairs
+    got, want = fn(mu, mv, n), ref.khash_match_pairs(mu, mv, n)
+    require(torch.equal(got, want),
+            f"khash_match_pairs on the k-Hash 4-clique launch: "
+            f"{int((got != want).sum())} of {T} counts differ from the plain "
+            "version")
+    flush = make_flush(torch)
+    ms = time_ms(lambda: fn(mu, mv, n), flush, reps=10, warmup=2)
+    plain = time_ms(lambda: ref.khash_match_pairs(mu, mv, n), flush,
+                    reps=5, warmup=1)
+    nbytes = 2 * T * k * 4 + T * 4
+    bound, by = bound_ms(nbytes, T * k)
+    timed_at = (f"rows form, E={T} pairs (u, v) of the first piece of "
+                f"triangles of the k-Hash 4-clique pass, k={k}, "
+                f"kronecker({CLIQUE5_SCALE}, 16, seed=1)")
+    print(f"  khash_match_pairs on the first launch of the pass ({timed_at})"
+          f": {ms:.4f} ms (plain {plain:.4f} ms, bound {bound:.4f} ms by "
+          f"{by}, {nbytes} bytes, {bound / ms:.1%} of bound); counts equal "
+          "the plain version", flush=True)
+    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                bytes=nbytes, timed_at=timed_at,
+                max_abs_err=int((got - want).abs().max()))
+
+
 def phase_cliques(torch, np, TE, TG, kernels, g, sess):
     """Phase 3c: 4-cliques on the phase-3 Bloom session at scale 21, then
     5-cliques (Bloom, AND4) and the k-Hash 4-clique at CLIQUE5_SCALE. The
@@ -953,6 +1062,7 @@ def phase_cliques(torch, np, TE, TG, kernels, g, sess):
 
     kh = TE.session(g16, "kh", storage_budget=1.0, device="cuda")
     rk = clique_pass(torch, kernels, kh.four_clique_count)
+    kforms = dict(kernels.mh_intersect.FORM_LAUNCHES)
     t0 = time.perf_counter()
     plain_kh = float(TE.MiningSession(g16, kh.sketch, kh.plan.with_(
         use_kernel=False)).four_clique_count())
@@ -963,10 +1073,16 @@ def phase_cliques(torch, np, TE, TG, kernels, g, sess):
           f"{rk['clique_triangles']}; launches {rk['launches']}; pass "
           f"{rk['s']:.3f} s; peak device memory {rk['peak_bytes']} bytes",
           flush=True)
-    require(rk["launches"]["khash_match_pairs"] > 0,
-            "the k-Hash 4-clique pass launched no khash_match_pairs")
+    rk["forms"] = kforms
+    require(rk["launches"]["khash_match_pairs"] > 0
+            and kforms == {"khash_match_pairs/rows":
+                           rk["launches"]["khash_match_pairs"]},
+            f"the k-Hash 4-clique pass launched {kforms}, expected the rows "
+            "form of khash_match_pairs only")
     require(rk["value"] == plain_kh,
             f"k-Hash 4-cliques {rk['value']} vs plain path {plain_kh}")
+    timing["khash_match_pairs[clique]"] = time_khash_clique_launch(
+        torch, kernels, g16, kh.sketch)
     del kh, g16
     torch.cuda.empty_cache()
     return dict(four=r4, five=r5, kh=rk, and3=and3, and4=and4,
@@ -974,12 +1090,12 @@ def phase_cliques(torch, np, TE, TG, kernels, g, sess):
 
 
 def phase_breakdown(torch, TE, sketches, g, sess, warm_pass_s, build_s,
-                    kh_sess, kh_warm_pass_s, clique_s):
+                    mh_sessions, mh_path, clique_s):
     """Phase 4: where the time goes. A warm Bloom pass (TC + LCC), a Bloom
-    sketch build, a warm k-Hash pass (TC) and the 4-clique pass run under
-    torch.profiler; device busy time is the sum of their kernels' device
-    time, and the idle share is taken against the unprofiled wall time of
-    phases 3/3b/3c."""
+    sketch build, warm k-Hash and 1-Hash-naive passes (TC) and the
+    4-clique pass run under torch.profiler; device busy time is the sum of
+    their kernels' device time, and the idle share is taken against the
+    unprofiled wall time of phases 3/3b/3c."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1009,12 +1125,16 @@ def phase_breakdown(torch, TE, sketches, g, sess, warm_pass_s, build_s,
     pass_busy = run("warm TC pass + LCC", warm_pass, warm_pass_s)
     build_busy = run("sketch build", lambda: sketches.build(
         g, "bf", storage_budget=1.0), build_s)
-    kh_busy = run("warm k-Hash TC pass", lambda: float(TE.MiningSession(
-        g, kh_sess.sketch, kh_sess.plan).triangle_count()), kh_warm_pass_s)
+    mh_busy = {}
+    for label, name in (("kh", "k-Hash"), ("1h-naive", "1-Hash-naive")):
+        mh = mh_sessions[label]
+        mh_busy[label] = run(f"warm {name} TC pass", lambda: float(
+            TE.MiningSession(g, mh.sketch, mh.plan).triangle_count()),
+            mh_path[label]["warm_pass_s"])
     clique_busy = run(f"4-clique pass (scale {SCALE})",
                       lambda: float(sess.four_clique_count()), clique_s,
                       top=14)
-    return pass_busy, build_busy, kh_busy, clique_busy
+    return pass_busy, build_busy, mh_busy, clique_busy
 
 
 def phase_reference(torch, np, TE, TG, sketches):
@@ -1256,9 +1376,14 @@ def main() -> None:
     for name in libs:
         log = (_build.BUILD_DIR / f"{name}.log")
         if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  {name}: {line.strip()}", flush=True)
+            text = log.read_text()
+            regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+            spills = [int(b) for b in
+                      re.findall(r"(\d+) bytes spill stores", text)]
+            if regs:
+                print(f"  {name}: {len(regs)} kernels, {min(regs)}-"
+                      f"{max(regs)} registers, {sum(spills)} bytes of spill "
+                      f"stores in all (ptxas)", flush=True)
 
     flush = make_flush(torch)
     timing = phase_kernels(torch, setexpr, kernels.fused_expr, ref, flush)
@@ -1277,8 +1402,8 @@ def main() -> None:
     clq = phase_cliques(torch, np, TE, TG, kernels, g, sess)
     timing.update(clq["timing"])
     phase_breakdown(torch, TE, sketches, g, sess, main_path["warm_pass_s"],
-                    main_path["build_s"], mh_sessions["kh"],
-                    mh_path["kh"]["warm_pass_s"], clq["four"]["s"])
+                    main_path["build_s"], mh_sessions, mh_path,
+                    clq["four"]["s"])
     del g, sess, mh_sessions
     torch.cuda.empty_cache()
     g12, exact = phase_reference(torch, np, TE, TG, sketches)
@@ -1290,8 +1415,7 @@ def main() -> None:
           f"build {main_path['build_s']:.3f} s pass {main_path['pass_s']:.3f} s "
           f"gather launches {main_path['launches']['fused_gather_popcount']}; "
           + "; ".join(f"{label}: k={r['k']} build {r['build_s']:.3f} s pass "
-                      f"{r['pass_s']:.3f} s launches "
-                      f"{max(r['launches'].values())}"
+                      f"{r['pass_s']:.3f} s launches {r['forms']}"
                       for label, r in mh_path.items())
           + f"; 4-cliques pass {clq['four']['s']:.3f} s AND3 launches "
           f"{clq['and3']}; 5-cliques (scale {CLIQUE5_SCALE}) pass "
@@ -1306,9 +1430,23 @@ def main() -> None:
     # rows 1-5 are timed at a TC pass chunk, row 6 and the AND4 entry at
     # the first launch of their clique pass (``timed_at``), which runs the
     # segmented kernel (``kernel``; ``gather_ms`` and ``bound_ms_tuples``
-    # are the [T, k] kernel's time and its input's bound there)
+    # are the [T, k] kernel's time and its input's bound there). The
+    # MinHash rows ``*_pairs`` are the rows forms (mh: no mined path runs
+    # it, the TC passes read rows by id; khash: the k-Hash 4-clique pass,
+    # timed on its first launch under ``clique_*``), the ``*_gather`` rows
+    # the forms the TC passes launch (``old_route_ms``: row copies, then
+    # the rows kernel, on the same pairs)
     fused_src = "src/repro_torch/kernels/csrc/fused_expr.cu"
     mh_src = "src/repro_torch/kernels/csrc/mh_intersect.cu"
+    mh_forms = {label: r["forms"] for label, r in mh_path.items()}
+    kh_clique = clq["kh"]["forms"]["khash_match_pairs/rows"]
+    kh_launch = timing.pop("khash_match_pairs[clique]")
+    timing["khash_match_pairs"].update(
+        clique_launches=kh_clique, clique_ms=kh_launch["ms"],
+        clique_plain_ms=kh_launch["plain_ms"],
+        clique_bound_ms=kh_launch["bound_ms"],
+        clique_bound_by=kh_launch["bound_by"],
+        clique_timed_at=kh_launch["timed_at"])
     gather = (main_path["launches"]["fused_gather_popcount"]
               + clq["four"]["launches"]["fused_gather_popcount"]
               + clq["five"]["launches"]["fused_gather_popcount"])
@@ -1330,9 +1468,15 @@ def main() -> None:
         ("bf_edge_intersect3", fused_src,
          "src/repro/kernels/bf_intersect.py:219", clq["and3"]),
         ("mh_intersect_pairs", mh_src, "src/repro/kernels/mh_intersect.py:26",
-         mh_path["1h-naive"]["launches"]["mh_intersect_pairs"]),
+         mh_forms["1h-naive"].get("mh_intersect_pairs/rows", 0)),
         ("khash_match_pairs", mh_src, "src/repro/kernels/mh_intersect.py:53",
-         mh_path["kh"]["launches"]["khash_match_pairs"]),
+         mh_forms["kh"].get("khash_match_pairs/rows", 0) + kh_clique),
+        ("mh_intersect_gather", mh_src,
+         "src/repro/kernels/mh_intersect.py:26",
+         mh_forms["1h-naive"]["mh_intersect_pairs/gather"]),
+        ("khash_match_gather", mh_src,
+         "src/repro/kernels/mh_intersect.py:53",
+         mh_forms["kh"]["khash_match_pairs/gather"]),
         ("flash_attention_wgmma",
          "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
          "src/repro/kernels/flash_attention.py:73", attn_launches),
@@ -1348,11 +1492,13 @@ def main() -> None:
         "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
         "bound_ms": timing[name]["bound_ms"],
         "bound_by": timing[name]["bound_by"],
+        "share": timing[name]["bound_ms"] / timing[name]["ms"],
         "library_ms": timing[name].get("library_ms"),
         "library_note": timing[name].get("library_note"),
         "timed_at": timing[name]["timed_at"],
-        **{key: timing[name][key] for key in (
-            "kernel", "gather_ms", "bound_ms_tuples") if key in timing[name]},
+        **{key: value for key, value in timing[name].items()
+           if key in ("kernel", "gather_ms", "bound_ms_tuples",
+                      "old_route_ms") or key.startswith("clique_")},
     } for name, source, replaces, launches in rows]
     print(smi)
     print(json.dumps({"kernels": records}))

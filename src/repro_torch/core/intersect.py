@@ -5,8 +5,9 @@ pairs[P,2] -> float32[P]: the paper's "plug in PG routines in place of
 exact set intersections" (Listing 6). Every sketch kind is ported: Bloom
 (the AND, limit and OR estimators), k-Hash, 1-Hash (``variant`` "union"
 or "naive") and KMV. ``use_kernel`` routes the Bloom popcounts and the
-MinHash match counts through the CUDA kernels. The exact baseline
-(``sketch=None``) needs ``core/exact.py`` and is not ported yet.
+MinHash match counts through the CUDA kernels; the k-Hash and 1-Hash
+naive counts then read each pair's rows from the sketch by id. The exact
+baseline (``sketch=None``) needs ``core/exact.py`` and is not ported yet.
 """
 from __future__ import annotations
 
@@ -36,13 +37,27 @@ def make_pair_cardinality_fn(graph: Graph, sketch: Optional[SketchSet] = None,
     if sketch.kind not in ("kh", "1h", "kmv"):
         raise ValueError(f"unknown sketch kind {sketch.kind}")
 
+    # lazy import: ``repro_torch.kernels`` imports ``core.estimators``
+    from ..kernels import ops
+
     data, deg, n = sketch.data, graph.deg, sketch.n
+    # with the kernels, the k-Hash and 1-Hash naive counts read each pair's
+    # rows from the sketch by id (the gather form): no row copies
+    count = None
+    if use_kernel and sketch.kind == "kh":
+        count = "khash_match_gather"
+    elif use_kernel and sketch.kind == "1h" and variant == "naive":
+        count = "mh_intersect_gather"
 
     def minhash_fn(pairs: torch.Tensor) -> torch.Tensor:
         """Per-pair MinHash/KMV estimate from the gathered sketch rows."""
         u, v = pairs[:, 0].long(), pairs[:, 1].long()
-        ru, rv = data.index_select(0, u), data.index_select(0, v)
         du, dv = deg[u], deg[v]
+        if count is not None:
+            matches = getattr(ops, count)(data, pairs, n, use_kernel=True)
+            return est.minhash_intersection(
+                matches.to(torch.float32) / data.shape[1], du, dv)
+        ru, rv = data.index_select(0, u), data.index_select(0, v)
         if sketch.kind == "kh":
             return est.khash_intersection(ru, rv, du, dv, n,
                                           use_kernel=use_kernel)

@@ -12,7 +12,8 @@ from typing import Dict
 from . import flash_attention, fused_expr, mh_intersect, ops, program, ref
 from .fused_expr import fused_gather_popcount, fused_rows_popcount
 from .ops import (bf_edge_intersect, bf_edge_intersect3, bf_intersect3_pairs,
-                  bf_intersect_pairs, khash_match_pairs, mh_intersect_pairs)
+                  bf_intersect_pairs, khash_match_gather, khash_match_pairs,
+                  mh_intersect_gather, mh_intersect_pairs)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -32,7 +33,8 @@ __all__ = [
     "bf_edge_intersect", "bf_edge_intersect3", "bf_intersect3_pairs",
     "bf_intersect_pairs", "flash_attention", "fused_expr",
     "fused_gather_popcount",
-    "fused_rows_popcount", "khash_match_pairs", "launch_counts",
-    "mh_intersect", "mh_intersect_pairs", "ops", "program", "ref",
+    "fused_rows_popcount", "khash_match_gather", "khash_match_pairs",
+    "launch_counts", "mh_intersect", "mh_intersect_gather",
+    "mh_intersect_pairs", "ops", "program", "ref",
     "reset_launch_counts",
 ]

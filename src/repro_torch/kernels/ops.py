@@ -3,11 +3,11 @@
 Each Bloom entry point builds the equivalent set expression and asks
 ``repro_torch.engine.setexpr`` for the cached compiled form, which runs
 the fused CUDA pass for CUDA tensors and the plain PyTorch version for
-CPU tensors. The MinHash counts run the kernels of
-:mod:`repro_torch.kernels.mh_intersect` the same way. The kernels take any
-row count and width, so nothing is padded. The Bloom entry points accept
-``block_e``/``block_w`` for signature parity with the reference and ignore
-them.
+CPU tensors. The MinHash counts, in their rows and gather forms, run the
+kernels of :mod:`repro_torch.kernels.mh_intersect` the same way. The
+kernels take any row count and width, so nothing is padded. The Bloom
+entry points accept ``block_e``/``block_w`` for signature parity with the
+reference and ignore them.
 """
 from __future__ import annotations
 
@@ -58,33 +58,54 @@ def bf_edge_intersect3(bloom: torch.Tensor, triples: torch.Tensor, *,
                          block_w=block_w).ones(bloom, triples)
 
 
-def _minhash_count(name: str, a: torch.Tensor, b: torch.Tensor,
-                   sentinel: int, use_kernel: Optional[bool]) -> torch.Tensor:
+def _minhash_count(name: str, check, args, sentinel: int,
+                   use_kernel: Optional[bool]) -> torch.Tensor:
     """Route a MinHash count: ``use_kernel`` None follows the tensors'
     device, True needs CUDA tensors, False runs the plain version."""
     if use_kernel is None:
-        use_kernel = a.is_cuda
+        use_kernel = args[0].is_cuda
     if not use_kernel:
-        _mh._check_rows(a, b, sentinel)
-        return getattr(ref, name)(a, b, int(sentinel))
-    if not a.is_cuda:
+        check(*args, sentinel)
+        return getattr(ref, name)(*args, int(sentinel))
+    if not args[0].is_cuda:
         raise ValueError("use_kernel=True needs CUDA tensors; the plain "
                          "PyTorch path is use_kernel=False")
-    return getattr(_mh, name)(a, b, sentinel)
+    return getattr(_mh, name)(*args, sentinel)
 
 
 def mh_intersect_pairs(a: torch.Tensor, b: torch.Tensor, sentinel: int, *,
                        use_kernel: Optional[bool] = None) -> torch.Tensor:
     """MinHash signature match count per row pair -> int32[E]: the (i, j)
     with ``a[i] == b[j]``, both below ``sentinel``."""
-    return _minhash_count("mh_intersect_pairs", a, b, sentinel, use_kernel)
+    return _minhash_count("mh_intersect_pairs", _mh._check_rows, (a, b),
+                          sentinel, use_kernel)
 
 
 def khash_match_pairs(a: torch.Tensor, b: torch.Tensor, sentinel: int, *,
                       use_kernel: Optional[bool] = None) -> torch.Tensor:
     """Aligned k-Hash match count per row pair -> int32[E]."""
-    return _minhash_count("khash_match_pairs", a, b, sentinel, use_kernel)
+    return _minhash_count("khash_match_pairs", _mh._check_rows, (a, b),
+                          sentinel, use_kernel)
+
+
+def mh_intersect_gather(data: torch.Tensor, pairs: torch.Tensor,
+                        sentinel: int, *, use_kernel: Optional[bool] = None
+                        ) -> torch.Tensor:
+    """:func:`mh_intersect_pairs` of sketch rows ``data[u]``, ``data[v]``
+    per pair of int32[E, 2] ``pairs``, read by id -> int32[E]."""
+    return _minhash_count("mh_intersect_gather", _mh._check_gather,
+                          (data, pairs), sentinel, use_kernel)
+
+
+def khash_match_gather(data: torch.Tensor, pairs: torch.Tensor,
+                       sentinel: int, *, use_kernel: Optional[bool] = None
+                       ) -> torch.Tensor:
+    """:func:`khash_match_pairs` of sketch rows ``data[u]``, ``data[v]``
+    per pair of int32[E, 2] ``pairs``, read by id -> int32[E]."""
+    return _minhash_count("khash_match_gather", _mh._check_gather,
+                          (data, pairs), sentinel, use_kernel)
 
 
 __all__ = ["bf_edge_intersect", "bf_edge_intersect3", "bf_intersect_pairs",
-           "bf_intersect3_pairs", "khash_match_pairs", "mh_intersect_pairs"]
+           "bf_intersect3_pairs", "khash_match_gather", "khash_match_pairs",
+           "mh_intersect_gather", "mh_intersect_pairs"]

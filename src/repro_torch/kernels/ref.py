@@ -115,6 +115,22 @@ def khash_match_pairs(a: torch.Tensor, b: torch.Tensor,
                      dtype=torch.int32)
 
 
+def mh_intersect_gather(data: torch.Tensor, pairs: torch.Tensor,
+                        sentinel: int) -> torch.Tensor:
+    """:func:`mh_intersect_pairs` of rows ``data[u]``, ``data[v]`` per pair
+    of int32[E, 2] ``pairs``, ids clamped to ``[0, n)``."""
+    return mh_intersect_pairs(gather_rows(data, pairs[:, 0]),
+                              gather_rows(data, pairs[:, 1]), sentinel)
+
+
+def khash_match_gather(data: torch.Tensor, pairs: torch.Tensor,
+                       sentinel: int) -> torch.Tensor:
+    """:func:`khash_match_pairs` of rows ``data[u]``, ``data[v]`` per pair
+    of int32[E, 2] ``pairs``, ids clamped to ``[0, n)``."""
+    return khash_match_pairs(gather_rows(data, pairs[:, 0]),
+                             gather_rows(data, pairs[:, 1]), sentinel)
+
+
 #: score cells (batch · heads · queries · keys) one chunk of the plain
 #: attention holds in float32 (1 GiB)
 _ATTN_CHUNK_CELLS = 1 << 28

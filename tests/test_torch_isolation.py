@@ -152,6 +152,26 @@ def test_minhash_wrappers_validate_inputs():
                 getattr(ops, name)(x, y, sentinel, use_kernel=False)
 
 
+def test_minhash_gather_wrappers_validate_inputs():
+    """The gather forms check the matrix, the pairs, their devices and the
+    sentinel before any launch, on every path."""
+    data = torch.zeros((3, 4), dtype=torch.int32)
+    pairs = torch.zeros((2, 2), dtype=torch.int32)
+    bad = [(data, pairs.long(), "int32"), (data, pairs[:, :1], "E, 2"),
+           (data[0], pairs, "int32"), (data, pairs.to("meta"), "meta"),
+           (data, pairs, "sentinel")]
+    before = dict(mh_intersect.LAUNCHES)
+    for name in ("mh_intersect_gather", "khash_match_gather"):
+        for x, y, match in bad:
+            sentinel = 2 ** 31 if match == "sentinel" else 5
+            for fn in (getattr(mh_intersect, name), getattr(ops, name)):
+                with pytest.raises(ValueError, match=match):
+                    fn(x, y, sentinel)
+            with pytest.raises(ValueError, match=match):
+                getattr(ops, name)(x, y, sentinel, use_kernel=False)
+    assert mh_intersect.LAUNCHES == before
+
+
 def test_cpu_path_counts_no_launches():
     """The plain CPU path leaves the kernels' launch counts alone."""
     before = dict(fused_expr.LAUNCHES)
@@ -169,11 +189,16 @@ def test_cpu_path_counts_no_launches():
     mh_intersect.khash_match_pairs(data, data, 7)
     ops.mh_intersect_pairs(data, data, 7)
     ops.khash_match_pairs(data, data, 7)
+    mh_forms = dict(mh_intersect.FORM_LAUNCHES)
+    for name in ("mh_intersect_gather", "khash_match_gather"):
+        getattr(mh_intersect, name)(data, tuples, 7)
+        getattr(ops, name)(data, tuples, 7)
     g = TG.kronecker(6, 4, seed=1, device="cpu")
     for kind in ("kh", "1h"):
         float(TE.session(g, kind, device="cpu", variant="naive")
               .triangle_count())
     assert mh_intersect.LAUNCHES == before_mh
+    assert mh_intersect.FORM_LAUNCHES == mh_forms
     assert fused_expr.FORM_LAUNCHES == forms
     float(TE.session(g, "bf", device="cpu").five_clique_count())
     float(TE.session(g, "kh", device="cpu").four_clique_count())
@@ -197,7 +222,9 @@ def _run_smoke(cwd: Path):
 
 
 @pytest.mark.parametrize("script", ["segment_variants.py",
-                                    "clique_passes.py"])
+                                    "clique_passes.py",
+                                    "minhash_variants.py",
+                                    "minhash_passes.py"])
 def test_gpu_scripts_fail_without_gpu(script):
     """The measurement scripts beside chip_smoke.py refuse to run without
     a GPU instead of timing the CPU, and print no result."""

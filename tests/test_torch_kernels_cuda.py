@@ -242,7 +242,7 @@ def _minhash_rows(gen, device, e: int, k: int, sentinel: int):
     return a, b
 
 
-@pytest.mark.parametrize("k", [1, 4, 7, 31, 33, 128, 256])
+@pytest.mark.parametrize("k", [1, 4, 7, 24, 28, 31, 32, 33, 128, 256])
 @pytest.mark.parametrize("e", [0, 1, 999, 65_537])
 def test_minhash_kernels_equal_plain_versions(cuda, k, e):
     """Both MinHash counts equal their plain versions for every k (below,
@@ -257,6 +257,67 @@ def test_minhash_kernels_equal_plain_versions(cuda, k, e):
         assert torch.equal(got, getattr(ref, name)(a, b, 150))
         assert torch.equal(getattr(ops, name)(a, b, 150), got)
         assert mh_intersect.LAUNCHES[name] == before + 2 * (e > 0)
+
+
+def _shifted(x):
+    """A copy of contiguous ``x`` whose base lies one word past an
+    allocation's start (4-byte but not 8- or 16-byte aligned)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.parametrize("k", [1, 4, 7, 24, 28, 31, 32, 33, 128, 256])
+@pytest.mark.parametrize("e", [0, 1, 999, 65_537])
+@pytest.mark.parametrize("shift", [False, True])
+def test_minhash_gather_kernels_equal_plain_versions(cuda, k, e, shift):
+    """Both gather forms equal their plain versions (gather_rows, then the
+    rows count) for every k and ragged E, with ids outside [0, n) clamped,
+    pairs (u, u), and (``shift``) a sketch matrix and a rows operand whose
+    base is shifted by 4 bytes; the rows form equals them on the same
+    rows. Each launch counts once under its count and its form; E = 0
+    launches nothing."""
+    gen = torch.Generator(device=cuda).manual_seed(k * 100_003 + e + shift)
+    n = 5_003
+    data, _ = _minhash_rows(gen, cuda, n, k, sentinel=150)
+    data[1] = torch.where(data[1] < 0, data[0], data[1])
+    pairs = torch.randint(-3, n + 3, (e, 2), dtype=torch.int32, device=cuda,
+                          generator=gen)
+    pairs[::7, 1] = pairs[::7, 0]
+    if shift:
+        data = _shifted(data)
+    for name in ("mh_intersect_pairs", "khash_match_pairs"):
+        gather = name.replace("_pairs", "_gather")
+        mh_intersect.reset_launch_counts()
+        got = getattr(mh_intersect, gather)(data, pairs, 150)
+        assert got.dtype == torch.int32 and got.shape == (e,)
+        want = getattr(ref, gather)(data, pairs, 150)
+        assert torch.equal(got, want)
+        a = ref.gather_rows(data, pairs[:, 0])
+        b = ref.gather_rows(data, pairs[:, 1])
+        if shift:
+            a = _shifted(a)
+        assert torch.equal(getattr(mh_intersect, name)(a, b, 150), want)
+        assert torch.equal(getattr(ops, gather)(data, pairs, 150), want)
+        assert mh_intersect.LAUNCHES[name] == 3 * (e > 0)
+        assert mh_intersect.FORM_LAUNCHES == (
+            {f"{name}/gather": 2, f"{name}/rows": 1} if e else {})
+
+
+def test_minhash_gather_known_counts(cuda):
+    """The gather form reads rows by id: duplicates count with
+    multiplicity, negative entries are valid, out-of-range ids clamp."""
+    data = torch.tensor([[3, 3, -2, 9], [3, -2, 3, 7], [9, 9, 9, 9]],
+                        dtype=torch.int32, device=cuda)
+    pairs = torch.tensor([[0, 1], [2, 2], [-5, 1], [0, 7]],
+                         dtype=torch.int32, device=cuda)
+    assert mh_intersect.mh_intersect_gather(data, pairs, 9).tolist() == \
+        [5, 0, 5, 0]
+    assert mh_intersect.khash_match_gather(data, pairs, 9).tolist() == \
+        [1, 0, 1, 0]
+    assert mh_intersect.mh_intersect_gather(data, pairs, 10).tolist() == \
+        [5, 16, 5, 4]
 
 
 def test_minhash_kernels_known_counts(cuda):
@@ -284,6 +345,7 @@ def test_minhash_session_kernel_path_equals_plain_path(cuda):
         cards = sess.edge_cardinalities()
         chunks = -(-g.m // sess.plan.edge_chunk)
         assert mh_intersect.LAUNCHES[name] == chunks
+        assert mh_intersect.FORM_LAUNCHES == {f"{name}/gather": chunks}
         plain = TE.MiningSession(g, sess.sketch,
                                  sess.plan.with_(use_kernel=False))
         assert torch.equal(cards, plain.edge_cardinalities())
@@ -300,6 +362,13 @@ def test_minhash_kernels_reject_bad_operands(cuda):
             mh_intersect.mh_intersect_pairs(a, bad, 5)
         with pytest.raises(ValueError):
             mh_intersect.khash_match_pairs(a, bad, 5)
+    pairs = torch.zeros((4, 2), dtype=torch.int32, device=cuda)
+    for data, p in ((a, pairs.cpu()), (a, pairs[:, :1]), (a, pairs.long()),
+                    (a.to(torch.int64), pairs), (a[:0], pairs)):
+        for fn in (mh_intersect.mh_intersect_gather,
+                   mh_intersect.khash_match_gather):
+            with pytest.raises(ValueError):
+                fn(data, p, 5)
     assert mh_intersect.LAUNCHES == before
 
 
@@ -473,6 +542,7 @@ def test_clique_kernel_path_equals_plain_path(cuda, monkeypatch):
     mh_intersect.reset_launch_counts()
     got = kh.four_clique_count()
     assert mh_intersect.LAUNCHES["khash_match_pairs"] >= 3
+    assert set(mh_intersect.FORM_LAUNCHES) == {"khash_match_pairs/rows"}
     assert torch.equal(got, TE.MiningSession(
         g, kh.sketch, kh.plan.with_(use_kernel=False)).four_clique_count())
 
