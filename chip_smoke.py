@@ -8,11 +8,15 @@ Phases, each printed as it runs:
   1. Environment: the card's name and power limit, torch and CUDA
      versions, and the build of every CUDA kernel from ``src/``.
   2. Kernels against their plain PyTorch versions on the card (integers:
-     equality required). The popcount kernels over AND2/AND3/AND4/OR/
-     ANDNOT/nested programs, row widths 2..600 and ragged tuple counts up
-     to ~1M; the MinHash counts in both forms (rows: int32[E, k] rows;
-     gather: the sketch matrix and pairs of ids) over k in {1, 4, 7, 24,
-     28, 31, 32, 33, 128, 256}, ragged E up to ~1M and 0, with
+     equality required). The popcount kernels, both [T, k] forms, over
+     the programs of ``popcount_programs`` (AND2/AND3/AND4, OR, ANDNOT,
+     nested, 8-leaf and permuted-column programs), row widths 1..600
+     (every vector width, column blocks), tuple counts at the kernels'
+     tile edges and up to ~1M, ids to clamp, operands whose base is
+     shifted by 4 bytes, and two-column tuples; the MinHash counts in
+     both forms (rows: int32[E, k] rows; gather: the sketch matrix and
+     pairs of ids) over k in {1, 4, 7, 24, 28, 31, 32, 33, 128, 256},
+     ragged E up to ~1M and 0, with
      all-sentinel rows, negative entries, duplicates, out-of-range and
      negative ids (clamped), and operands whose base is shifted by 4
      bytes. Attention by both routes (bfloat16: the wgmma
@@ -40,6 +44,10 @@ Phases, each printed as it runs:
      only the gather form may run) zeroed just before and read just
      after, its kernel's match counts on the 1M-edge sample (both forms)
      and its TC held against the plain path.
+  3d. The AND2 gather on two real chunks of the phase-3 TC pass (the
+     first and the median in hub order), checked against the plain
+     version and timed with L2 flushed and warm, beside its bound and
+     ``khash_match_gather`` on the same pairs over the k-Hash sketch.
   3c. Cliques: ``four_clique_count()`` on the phase-3 Bloom session
      (scale 21; its wedge candidates held to a numpy count from the CSR),
      then on ``kronecker(16, 16, seed=1)`` the Bloom ``five_clique_count()``
@@ -54,8 +62,9 @@ Phases, each printed as it runs:
      each other and the plain version and timed in turns, each beside its
      bound; the k-Hash pass must launch only the rows form of
      ``khash_match_pairs``, which is timed on the pass's first launch.
-  4. Where the time goes: a warm Bloom pass, a Bloom sketch build, warm
-     k-Hash and 1-Hash-naive passes and the scale-21 4-clique pass under
+  4. Where the time goes: a warm Bloom pass (and the [T, k] gather
+     kernel's time per launch in it), a Bloom sketch build, warm k-Hash
+     and 1-Hash-naive passes and the scale-21 4-clique pass under
      torch.profiler (device busy time, idle share, top kernels).
   5. A scale-12 graph against an independent numpy reference of the same
      definitions: Bloom words, k-Hash, 1-Hash and KMV sketches identical;
@@ -133,6 +142,36 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_kernels(log: str) -> list:
+    """Per kernel of an nvcc ``-Xptxas -v`` log: its name (demangled by
+    c++filt where the machine has it), registers and spill-store bytes."""
+    entries, current, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and current:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current:
+            entries.append(dict(kernel=current, registers=int(m.group(1)),
+                                spill_stores=spill))
+            current = None
+    try:
+        names = subprocess.run(
+            ["c++filt"], input="\n".join(e["kernel"] for e in entries),
+            capture_output=True, text=True, timeout=60,
+            check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        names = []
+    if len(names) == len(entries):
+        for e, name in zip(entries, names):
+            e["kernel"] = name.replace("(anonymous namespace)::", "")
+    return entries
+
+
 def time_ms(fn, flush, reps: int = 30, warmup: int = 3) -> float:
     """Median device time of ``fn()`` with CUDA events.
 
@@ -179,53 +218,96 @@ def make_flush(torch):
     return flush
 
 
+def popcount_programs(setexpr, program):
+    """The programs phase 2 and the card tests hold both popcount forms to:
+    name -> Program over tuples of 8 columns. The k-way ANDs run the
+    kernels' template; "AND3@4,0,2" is the template reading permuted
+    columns; every other program the interpreted path (up to 8 leaves)."""
+    r = setexpr.rows(8)
+    u, v, w, x = r[:4]
+    exprs = {"AND2": u & v, "AND3": u & v & w, "AND4": u & v & w & x,
+             "OR": u | v, "ANDNOT": u - v, "nested": (u | (v & w)) - (x | u),
+             "AND8": setexpr.and_all(*r),
+             "mixed8": ((r[0] & r[1]) | (r[2] & r[3]))
+             - ((r[4] | r[5]) & (r[6] | r[7])),
+             "permuted": (setexpr.Row(6) | setexpr.Row(1)) - setexpr.Row(4)}
+    progs = {k: setexpr.compile_program(e) for k, e in exprs.items()}
+    chain = program.and_program(3)
+    progs["AND3@4,0,2"] = program.Program(ops=chain.ops, args=chain.args,
+                                          slots=(4, 0, 2))
+    return progs
+
+
+def shifted(torch, x):
+    """A copy of contiguous ``x`` whose base lies one word past an
+    allocation's start (4-byte but not 8- or 16-byte aligned)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
 def phase_kernels(torch, setexpr, fused_expr, ref, flush):
     """Phase 2, popcount kernels: parity on many shapes, then timing of
     each form the main path or a reference kernel uses, at the main path's
     shape."""
+    from repro_torch.kernels import program
+
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    u, v, w, x = setexpr.rows(4)
-    exprs = {"AND2": u & v, "AND3": u & v & w, "AND4": u & v & w & x,
-             "OR": u | v, "ANDNOT": u - v, "nested": (u | (v & w)) - (x | u)}
-    programs = {k: setexpr.compile_program(e) for k, e in exprs.items()}
+    programs = popcount_programs(setexpr, program)
     n = 100_003
     cases = [(W, T) for W in (2, 8, 32, 34) for T in (1, 999, 65_549,
                                                         1_000_003)]
     cases += [(600, T) for T in (1, 999, 70_001)]
+    # tile edges, every vector width and column blocks
+    cases += [(W, T) for W in (1, 3, 4, 30, 31, 33, 128, 129)
+              for T in (1, 31, 32, 33, 65, 4099)]
     checked = 0
     # max |kernel - plain| per form and program
     err = {f"{form}/{name}": 0 for form in ("gather", "rows")
            for name in programs}
+
+    def check(key, got, want, what):
+        err[key] = max(err[key], int((got - want).abs().max()))
+        require(torch.equal(got, want),
+                f"{key} {what}: {int((got != want).sum())} of {want.numel()} "
+                "differ from the plain version")
+
     for W, T in cases:
         data = torch.randint(-2**31, 2**31 - 1, (n, W), dtype=torch.int32,
                              device=dev, generator=gen)
         data[0] = -1                                  # an all-ones row
-        tuples = torch.randint(0, n, (T, 4), dtype=torch.int32, device=dev,
-                               generator=gen)
+        # ids in [-3, n + 3): negative and past-the-end ids clamp
+        tuples = torch.randint(-3, n + 3, (T, 8), dtype=torch.int32,
+                               device=dev, generator=gen)
         tuples[::7, 0] = 0
-        for name, prog in programs.items():
-            got = fused_expr.fused_gather_popcount(data, tuples, prog)
-            want = ref.fused_gather_popcount(data, tuples, prog)
-            err[f"gather/{name}"] = max(err[f"gather/{name}"],
-                                        int((got - want).abs().max()))
-            require(torch.equal(got, want),
-                    f"gather {name} W={W} T={T}: "
-                    f"{int((got != want).sum())} tuples differ")
-            rows = [data[tuples[:, s].long()] for s in prog.slots]
-            got_r = fused_expr.fused_rows_popcount(rows, prog)
-            want_r = ref.fused_rows_popcount(rows, prog)
-            err[f"rows/{name}"] = max(err[f"rows/{name}"],
-                                      int((got_r - want_r).abs().max()))
-            require(torch.equal(got_r, want_r),
-                    f"rows {name} W={W} T={T}: "
-                    f"{int((got_r != want_r).sum())} rows differ")
-            checked += 2
-        del data, tuples, rows
+        pairs = tuples[:, :2].contiguous()            # 8-byte id loads
+        for d, how in ((data, ""), (shifted(torch, data), " (shifted)")):
+            what = f"W={W} T={T}{how}"
+            for name, prog in programs.items():
+                want = ref.fused_gather_popcount(d, tuples, prog)
+                check(f"gather/{name}",
+                      fused_expr.fused_gather_popcount(d, tuples, prog),
+                      want, what)
+                rows = [ref.gather_rows(d, tuples[:, s]) for s in prog.slots]
+                if how:
+                    rows[0] = shifted(torch, rows[0])
+                check(f"rows/{name}", fused_expr.fused_rows_popcount(
+                    rows, prog), want, what)
+                checked += 2
+            for tp, tw in ((pairs, " [T, 2]"),
+                           (shifted(torch, pairs), " [T, 2] shifted")):
+                check("gather/AND2", fused_expr.fused_gather_popcount(
+                    d, tp, programs["AND2"]), ref.fused_gather_popcount(
+                    d, tp, programs["AND2"]), what + tw)
+                checked += 1
+        del data, tuples, pairs, rows
     torch.cuda.synchronize()
     print(f"phase 2: popcount kernels equal their plain versions on "
           f"{checked} cases ({len(cases)} shapes x {len(programs)} programs "
-          f"x 2 forms); max_abs_err {max(err.values())}", flush=True)
+          f"x 2 forms x aligned and 4-byte shifted operands, and [T, 2] "
+          f"ids); max_abs_err {max(err.values())}", flush=True)
 
     # timing at the main path's shape: scale-21 rows of 32 words, one
     # 65,536-edge chunk; AND2 is the TC pass, AND3 the 4-clique form
@@ -244,6 +326,8 @@ def phase_kernels(torch, setexpr, fused_expr, ref, flush):
              "bf_edge_intersect": ("gather", "AND2"),
              "bf_edge_intersect3": ("gather", "AND3")}
     timing = {}
+    print(f"  [T, k] kernels' layout at W={W}: {fused_expr.tile_layout(data)}",
+          flush=True)
     for name, (form, pname) in forms.items():
         prog = programs[pname]
         k = len(prog.slots)
@@ -292,15 +376,6 @@ def minhash_rows(torch, gen, e: int, k: int, sentinel: int):
     a[::13] = sentinel
     b[5::13] = sentinel
     return a, b
-
-
-def shifted(torch, x):
-    """A copy of contiguous ``x`` whose base lies one word past an
-    allocation's start (4-byte but not 8- or 16-byte aligned)."""
-    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
-    out = buf[1:].view(x.shape)
-    out.copy_(x)
-    return out
 
 
 #: the MinHash counts: rows form (the TPU kernels' signature) -> gather form
@@ -807,6 +882,81 @@ def phase_minhash(torch, np, TE, kernels, g, chunks: int):
     return results, sessions
 
 
+#: device cycles a warm timing holds the card before each launch (~1 ms at
+#: 1.98 GHz): the host enqueues the launch meanwhile
+HOLD_CYCLES = 2_000_000
+
+
+def make_hold(torch):
+    """A stand-in for :func:`make_flush` that keeps the card busy without
+    touching memory (``torch.cuda._sleep``), so :func:`time_ms` times a
+    launch that finds the rows its previous runs read still in L2."""
+    def hold():
+        torch.cuda._sleep(HOLD_CYCLES)
+    return hold
+
+
+def hub_chunks(g, plan) -> dict:
+    """Two chunks of the Bloom TC pass as it launches them: the edges in
+    hub order (``order_edges_by_hub``) cut into ``plan.edge_chunk``
+    tuples; the first (the hubbiest) and the median one, int32[T, 2]."""
+    from repro_torch.engine.plan import order_edges_by_hub
+
+    edges, _ = order_edges_by_hub(g, g.edges)
+    c = plan.edge_chunk
+    mid = -(-edges.shape[0] // c) // 2
+    return {"hub chunk": edges[:c].contiguous(),
+            "median chunk": edges[mid * c:(mid + 1) * c].contiguous()}
+
+
+def phase_real_chunks(torch, kernels, g, sess, kh_sess) -> dict:
+    """Phase 3d: the AND2 gather on two real chunks of the Bloom TC pass
+    (:func:`hub_chunks`), checked against the plain version, timed with L2
+    flushed and warm (no flush), each beside its bound (each distinct row,
+    id and output once) and beside ``khash_match_gather`` on the same pairs
+    over the phase-3b k-Hash sketch."""
+    from repro_torch.kernels import program, ref
+
+    fe, mh = kernels.fused_expr, kernels.mh_intersect
+    data, W = sess.sketch.data, sess.sketch.data.shape[1]
+    kdata, kn = kh_sess.sketch.data, kh_sess.sketch.n
+    prog = program.and_program(2)
+    flush, hold = make_flush(torch), make_hold(torch)
+    timing = {}
+    for label, pairs in hub_chunks(g, sess.plan).items():
+        T = pairs.shape[0]
+        call = lambda: fe.fused_gather_popcount(data, pairs, prog)
+        want = ref.fused_gather_popcount(data, pairs, prog)
+        got = call()
+        require(torch.equal(got, want),
+                f"gather AND2 on the {label}: {int((got != want).sum())} of "
+                f"{T} popcounts differ from the plain version")
+        rows = int(torch.unique(pairs).numel())
+        nbytes = rows * W * 4 + T * 2 * 4 + T * 4
+        bound, by = bound_ms(nbytes, T * W * 3)
+        ms, warm = time_ms(call, flush), time_ms(call, hold)
+        plain = time_ms(lambda: ref.fused_gather_popcount(data, pairs, prog),
+                        flush)
+        kcall = lambda: mh.khash_match_gather(kdata, pairs, kn)
+        kms, kwarm = time_ms(kcall, flush), time_ms(kcall, hold)
+        timed_at = (f"gather AND2, the {label} of the scale-{SCALE} Bloom TC "
+                    f"pass in hub order: T={T}, {rows} distinct rows, W={W}")
+        print(f"phase 3d: {timed_at}: {ms:.4f} ms L2 flushed, {warm:.4f} ms "
+              f"warm (plain {plain:.4f} ms; bound {bound:.4f} ms by {by}, "
+              f"{nbytes} bytes, {bound / ms:.1%} / {bound / warm:.1%}); "
+              f"khash_match_gather on the same pairs (k={kdata.shape[1]}) "
+              f"{kms:.4f} / {kwarm:.4f} ms; popcounts equal the plain "
+              f"version; layout {fe.tile_layout(data)}", flush=True)
+        timing[f"fused_gather_popcount[{label}]"] = dict(
+            ms=ms, warm_ms=warm, plain_ms=plain, bound_ms=bound, bound_by=by,
+            bytes=nbytes, max_abs_err=int((got - want).abs().max()),
+            khash_gather_ms=kms, khash_gather_warm_ms=kwarm,
+            library_note=NO_LIBRARY["popcount"], timed_at=timed_at)
+    del flush
+    torch.cuda.empty_cache()
+    return timing
+
+
 def wedge_candidates(np, g) -> int:
     """Σ over canonical edges (u, v) of |{w ∈ N_v : w > v}|, in numpy."""
     indptr, indices = g.indptr.cpu().numpy(), g.indices.cpu().numpy()
@@ -1115,25 +1265,34 @@ def phase_breakdown(torch, TE, sketches, g, sess, warm_pass_s, build_s,
                         key=lambda e: -e.self_device_time_total)[:top]:
             print(f"    {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x "
                   f"{e.key[:100]}", flush=True)
-        return busy_s
+        return busy_s, kernels
 
     def warm_pass():
         again = TE.MiningSession(g, sess.sketch, sess.plan)
         float(again.triangle_count())
         again.local_clustering()
 
-    pass_busy = run("warm TC pass + LCC", warm_pass, warm_pass_s)
-    build_busy = run("sketch build", lambda: sketches.build(
+    pass_busy, pass_kernels = run("warm TC pass + LCC", warm_pass,
+                                  warm_pass_s)
+    tile = [e for e in pass_kernels if "tile_popcount_kernel" in e.key]
+    tile_us = sum(e.self_device_time_total for e in tile)
+    tile_n = sum(e.count for e in tile)
+    require(tile_n > 0, "the warm Bloom pass profile shows no launch of the "
+                        "[T, k] gather kernel")
+    print(f"  the [T, k] gather kernel in the warm pass: {tile_n} launches, "
+          f"{tile_us / 1e3:.3f} ms, {tile_us / tile_n:.2f} us a launch",
+          flush=True)
+    build_busy, _ = run("sketch build", lambda: sketches.build(
         g, "bf", storage_budget=1.0), build_s)
     mh_busy = {}
     for label, name in (("kh", "k-Hash"), ("1h-naive", "1-Hash-naive")):
         mh = mh_sessions[label]
-        mh_busy[label] = run(f"warm {name} TC pass", lambda: float(
+        mh_busy[label], _ = run(f"warm {name} TC pass", lambda: float(
             TE.MiningSession(g, mh.sketch, mh.plan).triangle_count()),
             mh_path[label]["warm_pass_s"])
-    clique_busy = run(f"4-clique pass (scale {SCALE})",
-                      lambda: float(sess.four_clique_count()), clique_s,
-                      top=14)
+    clique_busy, _ = run(f"4-clique pass (scale {SCALE})",
+                         lambda: float(sess.four_clique_count()), clique_s,
+                         top=14)
     return pass_busy, build_busy, mh_busy, clique_busy
 
 
@@ -1376,14 +1535,16 @@ def main() -> None:
     for name in libs:
         log = (_build.BUILD_DIR / f"{name}.log")
         if log.exists():
-            text = log.read_text()
-            regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
-            spills = [int(b) for b in
-                      re.findall(r"(\d+) bytes spill stores", text)]
-            if regs:
-                print(f"  {name}: {len(regs)} kernels, {min(regs)}-"
-                      f"{max(regs)} registers, {sum(spills)} bytes of spill "
-                      f"stores in all (ptxas)", flush=True)
+            entries = ptxas_kernels(log.read_text())
+            if entries:
+                regs = [e["registers"] for e in entries]
+                spilled = [e for e in entries if e["spill_stores"]]
+                print(f"  {name}: {len(entries)} kernels, {min(regs)}-"
+                      f"{max(regs)} registers, "
+                      f"{sum(e['spill_stores'] for e in entries)} bytes of "
+                      f"spill stores in all (ptxas)"
+                      + "".join(f"; {e['spill_stores']} B in {e['kernel']}"
+                                for e in spilled), flush=True)
 
     flush = make_flush(torch)
     timing = phase_kernels(torch, setexpr, kernels.fused_expr, ref, flush)
@@ -1399,6 +1560,8 @@ def main() -> None:
     g, sess, main_path = phase_main(torch, np, TE, TG, kernels, SCALE)
     mh_path, mh_sessions = phase_minhash(torch, np, TE, kernels, g,
                                          main_path["chunks"])
+    timing.update(phase_real_chunks(torch, kernels, g, sess,
+                                    mh_sessions["kh"]))
     clq = phase_cliques(torch, np, TE, TG, kernels, g, sess)
     timing.update(clq["timing"])
     phase_breakdown(torch, TE, sketches, g, sess, main_path["warm_pass_s"],
@@ -1435,7 +1598,10 @@ def main() -> None:
     # it, the TC passes read rows by id; khash: the k-Hash 4-clique pass,
     # timed on its first launch under ``clique_*``), the ``*_gather`` rows
     # the forms the TC passes launch (``old_route_ms``: row copies, then
-    # the rows kernel, on the same pairs)
+    # the rows kernel, on the same pairs); the ``[... chunk]`` rows are the
+    # AND2 gather on two real chunks of the Bloom TC pass (phase 3d: ``ms``
+    # with L2 flushed, ``warm_ms`` without, ``khash_gather_*`` the k-Hash
+    # gather on the same pairs), with the Bloom TC path's AND2 launches
     fused_src = "src/repro_torch/kernels/csrc/fused_expr.cu"
     mh_src = "src/repro_torch/kernels/csrc/mh_intersect.cu"
     mh_forms = {label: r["forms"] for label, r in mh_path.items()}
@@ -1484,6 +1650,12 @@ def main() -> None:
          "src/repro/kernels/flash_attention.py:73", fp32_launches),
         ("fused_gather_popcount[AND4]", fused_src,
          "src/repro/kernels/fused_expr.py:79", clq["and4"]),
+        ("fused_gather_popcount[hub chunk]", fused_src,
+         "src/repro/kernels/fused_expr.py:79",
+         main_path["forms"].get("gather/and2", 0)),
+        ("fused_gather_popcount[median chunk]", fused_src,
+         "src/repro/kernels/fused_expr.py:79",
+         main_path["forms"].get("gather/and2", 0)),
     ]
     records = [{
         "name": name, "route": "cuda", "source": source,
@@ -1498,7 +1670,8 @@ def main() -> None:
         "timed_at": timing[name]["timed_at"],
         **{key: value for key, value in timing[name].items()
            if key in ("kernel", "gather_ms", "bound_ms_tuples",
-                      "old_route_ms") or key.startswith("clique_")},
+                      "old_route_ms", "warm_ms", "khash_gather_ms",
+                      "khash_gather_warm_ms") or key.startswith("clique_")},
     } for name, source, replaces, launches in rows]
     print(smi)
     print(json.dumps({"kernels": records}))

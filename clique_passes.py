@@ -2,6 +2,7 @@
 """Run the Bloom clique passes of a checkout of the port once, on one GPU.
 
     python3 clique_passes.py [--src DIR] [--scale 21] [--scale5 16]
+                             [--graph-cache F]
 
 Imports ``repro_torch`` from ``DIR`` (default: this checkout's ``src``),
 so the same script can drive an older checkout of the port beside this
@@ -12,7 +13,9 @@ at storage budget 1.0 and runs ``four_clique_count()`` and
 pass, launch counts zeroed just before). Prints one JSON object: the
 card, the estimates (as float32 bit patterns too, so two checkouts can
 be compared exactly), the enumeration counters, the launches, the pass
-seconds and the peak device memory of each pass.
+seconds and the peak device memory of each pass. ``--graph-cache F``
+loads the scale-``scale`` graph from F (written by the first run that
+lacks it; the same file as ``minhash_passes.py --graph-cache``).
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ def main(argv=None) -> None:
                                              .parent / "src"))
     parser.add_argument("--scale", type=int, default=21)
     parser.add_argument("--scale5", type=int, default=16)
+    parser.add_argument("--graph-cache", default=None)
     args = parser.parse_args(argv)
     import torch
 
@@ -40,11 +44,13 @@ def main(argv=None) -> None:
     from repro_torch.core import graph
     from repro_torch.kernels import _build
     from repro_torch.obs.metrics import REGISTRY
+    from minhash_passes import load_graph
 
     _build.build(["fused_expr"])               # outside the timed passes
 
     def run(scale: int, method: str) -> dict:
-        g = graph.kronecker(scale, 16, seed=1, device="cuda")
+        g = load_graph(torch, graph, scale, args.graph_cache
+                       if scale == args.scale else None)
         sess = engine.session(g, "bf", storage_budget=1.0, device="cuda")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Run one MinHash pass of a checkout of the port, on one GPU.
+"""Run one mining pass of a checkout of the port, on one GPU.
 
-    python3 minhash_passes.py [--pass kh|1h-naive|kh4] [--src DIR]
+    python3 minhash_passes.py [--pass kh|1h-naive|kh4|bf] [--src DIR]
                               [--scale 21] [--scale4 16] [--graph-cache F]
 
 Imports ``repro_torch`` from ``DIR`` (default: this checkout's ``src``),
 so the same script can drive an older checkout of the port beside this
-one; run each pass in its own process. ``kh`` and ``1h-naive`` are the
-TC passes of ``session(g, "kh")`` and ``session(g, "1h",
-variant="naive")`` on ``kronecker(scale, 16, seed=1)``; ``kh4`` is the
+one; run each pass in its own process. ``kh``, ``1h-naive`` and ``bf``
+are the TC passes of ``session(g, "kh")``, ``session(g, "1h",
+variant="naive")`` and ``session(g, "bf")`` (the AND2 gather popcount) on
+``kronecker(scale, 16, seed=1)``; ``kh4`` is the
 k-Hash ``four_clique_count()`` on ``kronecker(scale4, 16, seed=1)``; all
 at storage budget 1.0. ``--graph-cache F`` loads the scale-``scale``
 graph from F (written by the first run that lacks it), which spares each
@@ -35,7 +36,8 @@ from pathlib import Path
 #: pass name -> (sketch kind, session options, method)
 PASSES = {"kh": ("kh", {}, "triangle_count"),
           "1h-naive": ("1h", {"variant": "naive"}, "triangle_count"),
-          "kh4": ("kh", {}, "four_clique_count")}
+          "kh4": ("kh", {}, "four_clique_count"),
+          "bf": ("bf", {}, "triangle_count")}
 
 
 def load_graph(torch, graph, scale: int, cache):
@@ -70,9 +72,9 @@ def main(argv=None) -> None:
     sys.path.insert(0, args.src)
     from repro_torch import engine, kernels
     from repro_torch.core import graph
-    from repro_torch.kernels import _build, mh_intersect
+    from repro_torch.kernels import _build, fused_expr, mh_intersect
 
-    _build.build(["mh_intersect"])             # outside the timed passes
+    _build.build(["fused_expr", "mh_intersect"])   # outside the timed passes
     kind, options, method = PASSES[args.name]
     if args.name == "kh4":
         scale = args.scale4
@@ -94,7 +96,8 @@ def main(argv=None) -> None:
     kernels.reset_launch_counts()
     value, first_s = timed(sess)
     launches = {k: v for k, v in kernels.launch_counts().items() if v}
-    forms = dict(getattr(mh_intersect, "FORM_LAUNCHES", {}))
+    forms = {**getattr(mh_intersect, "FORM_LAUNCHES", {}),
+             **fused_expr.FORM_LAUNCHES}
     warm = []
     for _ in range(3):
         again, seconds = timed(engine.MiningSession(g, sess.sketch,

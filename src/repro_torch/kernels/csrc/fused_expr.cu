@@ -3,39 +3,63 @@
 // Replaces the Pallas TPU kernels of src/repro/kernels/fused_expr.py:
 //   * pg_fused_gather_popcount <- fused_gather_popcount (body
 //     _gather_expr_kernel, _popcount_accumulate, row DMA
-//     bf_intersect._gather_rows): for each tuple, gather k rows of the
-//     sketch matrix, evaluate the AND/OR/ANDNOT tree, popcount the row.
+//     bf_intersect._gather_rows), and its AND2 / AND3 forms
+//     bf_intersect._edge_impl / _edge3_impl: for each tuple, gather k rows
+//     of the sketch matrix, evaluate the AND/OR/ANDNOT tree, popcount it.
 //   * pg_fused_rows_popcount <- fused_rows_popcount (body
-//     _rows_expr_kernel): the same tree over k dense, pre-gathered rows.
+//     _rows_expr_kernel), and its AND2 / AND3 forms
+//     bf_intersect._pairs_impl / _pairs3_impl: the same tree over k dense,
+//     pre-gathered operand matrices.
 //   * pg_fused_segment_popcount <- the k-way AND form (k = 2, 3, 4) of
 //     fused_gather_popcount and bf_intersect._edge3_impl, for tuples that
 //     come in segments sharing their first k-1 rows (the clique launch);
 //     its own note is above its kernel, below.
 //
-// What bounds it: memory. A tuple reads k rows of W words and writes one
-// int32, doing about (k + 1) integer operations per word read, far below
-// the card's operations-per-byte balance. The least time is the bytes
-// moved, T·k·W·4 gathered plus T·(4k + 4) of ids and output, over the
-// card's memory bandwidth (fewer when tuples share rows that L2 holds).
+// What bounds the first two: memory. A tuple reads k rows of W words (and,
+// gathered, its k ids) and writes one int32, for about k + 1 integer
+// operations per word read, far below the card's operations-per-byte
+// balance. The least time is the bytes moved over the card's memory
+// bandwidth: each distinct row once, plus ids and outputs. A TC chunk
+// (65,536 tuples of two 128-byte rows) moves ~17 MB: about 5 us, the
+// order of a launch, so the kernel lives on latency: the id load, then
+// the row loads, then the store, each a round trip to memory.
 //
-// Design:
-//   * A group of G lanes (G = the power of two >= W, capped at 32) takes
-//     one tuple, so a warp handles 32/G tuples when rows are short. Lanes
-//     stride the row's words (w = lane; w < W; w += G), so neighbouring
-//     lanes read neighbouring words and a row is read in whole 128-byte
-//     lines.
-//   * The Pallas kernel carries its popcount across grid steps over the
-//     word axis. Blocks here run in no order, so the whole loop over words
-//     lives inside the group and a __shfl_xor_sync tree closes the sum: no
-//     atomics, no second pass.
-//   * Each group loads its own row ids (the TPU kernel scalar-prefetches
-//     them). Ids are clamped to [0, n), as the plain version does.
-//   * The expression arrives as data: a postfix program of at most 16
-//     instructions over at most 8 leaves, by value in the argument struct,
-//     and the same program drives the plain PyTorch version. The k-way AND
-//     (k = 2, 3, 4) is instantiated as a template that keeps the row
-//     pointers in registers; every other program is interpreted per word.
-//   * Ragged T and any W are masked here, so callers pad nothing.
+// Design (tile_popcount_kernel; one body, two row sources):
+//   * A warp takes a tile of kTileTuples (16) consecutive tuples. Lane j
+//     loads tuple j's ids once, one coalesced load per operand column (one
+//     8-byte load for two-column tuples), clamps them to [0, n), and the
+//     row groups take them by __shfl_sync: no lane loads an id another
+//     lane holds. The dense form has no ids: operand p of tuple e is row e
+//     of operand matrix p.
+//   * Rows are read as vectors of V words: 16-byte loads when W % 4 == 0
+//     and every base is 16-byte aligned, else 8 or 4 bytes. A group of G
+//     lanes (the power of two >= W / V vectors, at most 32) reads one
+//     row, so a warp reads 32 / G rows a step: four whole 128-byte rows at
+//     W = 32. A tile takes kTileTuples / (32 / G) steps; the row loads of
+//     kTileBatch (2) steps are all issued before the first is used. Rows
+//     wider than 32 vectors are read in column blocks.
+//   * The k-way AND (k = 2, 3, 4) is a template. Any other program is
+//     rewritten on the host into operands in push order and binary ops
+//     x[a] = x[a] op x[b] (a < b: the leftmost operand of each subtree
+//     holds its value), so the kernel loads a step's operand vectors
+//     first and then runs at most 7 ops on registers, each one switch
+//     over the (op, a, b) code: no stack, no dynamically indexed array.
+//     A leaf pushed twice is loaded twice (the second load hits L1).
+//   * A shuffle tree sums each group's popcounts, a shuffle hands lane j
+//     tuple j's sum, and the tile stores its outputs in one coalesced
+//     store. Blocks run in any order, so where the Pallas kernel carries
+//     its sum across grid steps over the word axis, here the loop over
+//     words stays inside the group: no atomics, no second pass.
+//   * Ragged T and any W are masked here, so callers pad nothing. The
+//     expression arrives as data (at most 16 postfix instructions over at
+//     most 8 leaves), and the same program drives the plain PyTorch
+//     version.
+//   * Like the segmented kernel, it is bound by latency before bandwidth:
+//     on the card, tiles of 16 tuples with batches of 2 steps (48
+//     registers at AND2) beat tiles of 32 or 8, batches of 1, 4 or 8,
+//     8-warp blocks and the L2::128B prefetch hint on the row loads
+//     (segment_variants.py --tile at the root of the repository times the
+//     variants; PERF.md).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (see repro_torch/kernels/_build.py). Plain C
@@ -50,167 +74,320 @@ namespace {
 
 constexpr int kMaxInstr = 16;
 constexpr int kMaxLeaves = 8;
-constexpr int kThreads = 256;
 constexpr int kPush = 0, kAnd = 1, kOr = 2, kAndNot = 3;
+constexpr unsigned kFull = 0xffffffffu;
 
-struct Program {
-  int n_instr;
-  int n_leaves;
-  int and_k;
-  int op[kMaxInstr];
-  int arg[kMaxInstr];
-  int slot[kMaxLeaves];
-};
+template <int V> struct VecOf;
+template <> struct VecOf<1> { using T = uint32_t; };
+template <> struct VecOf<2> { using T = uint2; };
+template <> struct VecOf<4> { using T = uint4; };
 
-struct Rows {
-  const uint32_t* ptr[kMaxLeaves];
-};
+__device__ __forceinline__ uint32_t vand(uint32_t a, uint32_t b) { return a & b; }
+__device__ __forceinline__ uint2 vand(uint2 a, uint2 b) {
+  return make_uint2(a.x & b.x, a.y & b.y);
+}
+__device__ __forceinline__ uint4 vand(uint4 a, uint4 b) {
+  return make_uint4(a.x & b.x, a.y & b.y, a.z & b.z, a.w & b.w);
+}
+__device__ __forceinline__ uint32_t vor(uint32_t a, uint32_t b) {
+  return a | b;
+}
+__device__ __forceinline__ uint2 vor(uint2 a, uint2 b) {
+  return make_uint2(a.x | b.x, a.y | b.y);
+}
+__device__ __forceinline__ uint4 vor(uint4 a, uint4 b) {
+  return make_uint4(a.x | b.x, a.y | b.y, a.z | b.z, a.w | b.w);
+}
+__device__ __forceinline__ uint32_t vandn(uint32_t a, uint32_t b) {
+  return a & ~b;
+}
+__device__ __forceinline__ uint2 vandn(uint2 a, uint2 b) {
+  return make_uint2(a.x & ~b.x, a.y & ~b.y);
+}
+__device__ __forceinline__ uint4 vandn(uint4 a, uint4 b) {
+  return make_uint4(a.x & ~b.x, a.y & ~b.y, a.z & ~b.z, a.w & ~b.w);
+}
+__device__ __forceinline__ uint32_t vpopc(uint32_t a) { return __popc(a); }
+__device__ __forceinline__ uint32_t vpopc(uint2 a) {
+  return __popc(a.x) + __popc(a.y);
+}
+__device__ __forceinline__ uint32_t vpopc(uint4 a) {
+  return __popc(a.x) + __popc(a.y) + __popc(a.z) + __popc(a.w);
+}
+template <typename VT> __device__ __forceinline__ VT vzero() { return VT{}; }
 
-// Interpret the postfix program for word w of the leaf rows. A program of
-// at most 16 instructions pushes at most 8 values, so 8 stack slots hold it.
-__device__ __forceinline__ uint32_t eval_program(const Program& p,
-                                                 const uint32_t* const* base,
-                                                 int w) {
-  uint32_t st[kMaxLeaves];
-  int sp = 0;
-  for (int i = 0; i < p.n_instr; ++i) {
-    const int op = p.op[i];
-    if (op == kPush) {
-      st[sp++] = __ldg(base[p.arg[i]] + w);
-    } else {
-      const uint32_t b = st[--sp];
-      const uint32_t a = st[sp - 1];
-      st[sp - 1] = op == kAnd ? (a & b) : op == kOr ? (a | b) : (a & ~b);
-    }
-  }
-  return st[0];
+__device__ __forceinline__ int clamp_id(int id, int n) {
+  return id < 0 ? 0 : (id >= n ? n - 1 : id);
 }
 
-// Popcount of the evaluated row, summed over this lane's words.
-// K > 0: the K-way AND of leaves 0..K-1; K == 0: interpret the program.
-template <int K>
-__device__ __forceinline__ uint32_t lane_popcount(const Program& p,
-                                                  const uint32_t* const* base,
-                                                  int W, int lane, int G) {
-  uint32_t acc = 0;
-  for (int w = lane; w < W; w += G) {
-    uint32_t v;
-    if constexpr (K > 0) {
-      v = __ldg(base[0] + w);
-#pragma unroll
-      for (int j = 1; j < K; ++j) v &= __ldg(base[j] + w);
-    } else {
-      v = eval_program(p, base, w);
-    }
-    acc += __popc(v);
-  }
-  return acc;
+// Rows are read V words at a time: 4 when W % 4 == 0 and the address is
+// 16-byte aligned, 2 when W is even and it is 8-byte aligned, else 1.
+int vector_words(int W, const void* data) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(data);
+  if (W % 4 == 0 && a % 16 == 0) return 4;
+  if (W % 2 == 0 && a % 8 == 0) return 2;
+  return 1;
 }
 
-// Sum over the G lanes of a group (G divides 32; groups are warp-aligned).
-__device__ __forceinline__ uint32_t group_sum(uint32_t acc, int G) {
-  for (int off = G >> 1; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  return acc;
-}
-
-template <int K>
-__global__ void __launch_bounds__(kThreads)
-gather_popcount_kernel(const uint32_t* __restrict__ data, long long n, int W,
-                       const int32_t* __restrict__ tuples, long long T,
-                       int tuple_cols, Program p, int group_log2,
-                       int32_t* __restrict__ out) {
-  constexpr int kLeaves = K > 0 ? K : kMaxLeaves;
-  const int G = 1 << group_log2;
-  const int lane = threadIdx.x & (G - 1);
-  const long long t = (long long)blockIdx.x * (kThreads >> group_log2) +
-                      (threadIdx.x >> group_log2);
-  uint32_t acc = 0;
-  if (t < T) {
-    const int32_t* tup = tuples + t * tuple_cols;
-    const uint32_t* base[kLeaves];
-    const int leaves = K > 0 ? K : p.n_leaves;
-#pragma unroll
-    for (int j = 0; j < kLeaves; ++j) {
-      if (j < leaves) {
-        long long id = __ldg(tup + p.slot[j]);
-        id = id < 0 ? 0 : (id >= n ? n - 1 : id);
-        base[j] = data + id * W;
-      }
-    }
-    acc = lane_popcount<K>(p, base, W, lane, G);
-  }
-  acc = group_sum(acc, G);  // every lane takes part, in range or not
-  if (lane == 0 && t < T) out[t] = (int32_t)acc;
-}
-
-template <int K>
-__global__ void __launch_bounds__(kThreads)
-rows_popcount_kernel(Rows rows, long long E, int W, Program p, int group_log2,
-                     int32_t* __restrict__ out) {
-  constexpr int kLeaves = K > 0 ? K : kMaxLeaves;
-  const int G = 1 << group_log2;
-  const int lane = threadIdx.x & (G - 1);
-  const long long e = (long long)blockIdx.x * (kThreads >> group_log2) +
-                      (threadIdx.x >> group_log2);
-  uint32_t acc = 0;
-  if (e < E) {
-    const uint32_t* base[kLeaves];
-    const int leaves = K > 0 ? K : p.n_leaves;
-#pragma unroll
-    for (int j = 0; j < kLeaves; ++j)
-      if (j < leaves) base[j] = rows.ptr[j] + e * W;
-    acc = lane_popcount<K>(p, base, W, lane, G);
-  }
-  acc = group_sum(acc, G);
-  if (lane == 0 && e < E) out[e] = (int32_t)acc;
-}
-
-// Copy the packed program into the argument struct and check it: opcodes,
-// leaf indices, stack discipline, the AND fast-path arity and, when
-// tuple_cols > 0, that every leaf's column exists.
-bool unpack(const int* packed, int tuple_cols, Program* p) {
-  p->n_instr = packed[0];
-  p->n_leaves = packed[1];
-  p->and_k = packed[2];
-  if (p->n_instr < 1 || p->n_instr > kMaxInstr || p->n_leaves < 1 ||
-      p->n_leaves > kMaxLeaves || p->and_k < 0 || p->and_k > p->n_leaves)
-    return false;
-  int depth = 0;
-  for (int i = 0; i < kMaxInstr; ++i) {
-    p->op[i] = packed[3 + i];
-    p->arg[i] = packed[3 + kMaxInstr + i];
-    if (i >= p->n_instr) continue;
-    if (p->op[i] == kPush) {
-      if (p->arg[i] < 0 || p->arg[i] >= p->n_leaves) return false;
-      ++depth;
-    } else if (p->op[i] >= kAnd && p->op[i] <= kAndNot && depth >= 2) {
-      --depth;
-    } else {
-      return false;
-    }
-  }
-  for (int j = 0; j < kMaxLeaves; ++j) {
-    p->slot[j] = packed[3 + 2 * kMaxInstr + j];
-    if (j < p->n_leaves && tuple_cols > 0 &&
-        (p->slot[j] < 0 || p->slot[j] >= tuple_cols))
-      return false;
-  }
-  return depth == 1;
-}
-
-// log2 of the group size: the power of two >= W, capped at a warp.
-int group_log2_for(int W) {
+// log2 of the lanes per row: the power of two >= the row's vectors,
+// capped at a warp.
+int group_log2_for(int vectors) {
   int g = 0;
-  while ((1 << g) < W && g < 5) ++g;
+  while ((1 << g) < vectors && g < 5) ++g;
   return g;
 }
 
-bool grid_for(long long count, int group_log2, unsigned* blocks) {
-  const long long per_block = kThreads >> group_log2;
-  const long long b = (count + per_block - 1) / per_block;
-  if (b < 1 || b > 0x7fffffffLL) return false;
-  *blocks = (unsigned)b;
+// ---------------------------------------------------------------------------
+// The [T, k] gather and dense forms: tiles of tuples (the note at the top).
+// ---------------------------------------------------------------------------
+
+constexpr int kTileWarps = 4;     // warps per block
+constexpr int kTileTuples = 16;   // tuples per warp: one tile
+constexpr int kTileBatch = 2;     // steps whose row loads are in flight (AND)
+constexpr int kProgBatch = 1;     // the same for other programs (8 operands)
+
+// The expression as the kernel runs it: n_push operands in push order and
+// n_push - 1 binary ops, op i being x[a] = x[a] op x[b] with code
+// op << 6 | a << 3 | b. The result is x[0].
+struct Expr {
+  int n_push;
+  int col[kMaxLeaves];          // gather form: the tuple column of operand p
+  int code[kMaxLeaves - 1];
+};
+
+// Gather form: operand p of tuple t is row clamp(tuples[t][col[p]]) of data.
+struct GatherSrc {
+  static constexpr bool kGather = true;
+  const uint32_t* data;         // [n, W]
+  const int32_t* tuples;        // [T, cols]
+  long long T;
+  int cols;
+  int last;                     // the last row id: min(n - 1, INT_MAX)
+  int pair_ids;                 // cols == 2, 8-byte aligned: one int2 load
+};
+
+// Dense form: operand p of tuple e is row e of ptr[p].
+struct RowsSrc {
+  static constexpr bool kGather = false;
+  const uint32_t* ptr[kMaxLeaves];   // [E, W] each, in push order
+  long long T;
+};
+
+__device__ __forceinline__ int clamp_last(int id, int last) {
+  return id < 0 ? 0 : min(id, last);
+}
+
+#define PG_OPS(a, b)                                                       \
+  case kAnd << 6 | (a) << 3 | (b): x[a] = vand(x[a], x[b]); break;         \
+  case kOr << 6 | (a) << 3 | (b): x[a] = vor(x[a], x[b]); break;           \
+  case kAndNot << 6 | (a) << 3 | (b): x[a] = vandn(x[a], x[b]); break;
+
+// The expression on one step's operand vectors. K > 0: the K-way AND of
+// operands 0..K-1; K == 0: the ops of e, each a switch over its code.
+template <int K, int NP, typename VT>
+__device__ __forceinline__ VT eval_expr(const Expr& e, VT (&x)[NP]) {
+  if constexpr (K > 0) {
+    VT v = x[0];
+#pragma unroll
+    for (int p = 1; p < K; ++p) v = vand(v, x[p]);
+    return v;
+  } else {
+#pragma unroll
+    for (int i = 0; i < kMaxLeaves - 1; ++i) {
+      if (i < e.n_push - 1) {
+        switch (e.code[i]) {
+          PG_OPS(0, 1) PG_OPS(0, 2) PG_OPS(0, 3) PG_OPS(0, 4) PG_OPS(0, 5)
+          PG_OPS(0, 6) PG_OPS(0, 7) PG_OPS(1, 2) PG_OPS(1, 3) PG_OPS(1, 4)
+          PG_OPS(1, 5) PG_OPS(1, 6) PG_OPS(1, 7) PG_OPS(2, 3) PG_OPS(2, 4)
+          PG_OPS(2, 5) PG_OPS(2, 6) PG_OPS(2, 7) PG_OPS(3, 4) PG_OPS(3, 5)
+          PG_OPS(3, 6) PG_OPS(3, 7) PG_OPS(4, 5) PG_OPS(4, 6) PG_OPS(4, 7)
+          PG_OPS(5, 6) PG_OPS(5, 7) PG_OPS(6, 7)
+          default: break;
+        }
+      }
+    }
+    return x[0];
+  }
+}
+
+#undef PG_OPS
+
+template <class Src, int K, int V>
+__global__ void __launch_bounds__(kTileWarps * 32)
+tile_popcount_kernel(Src src, Expr e, int W, int group_log2,
+                     int32_t* __restrict__ out) {
+  using VT = typename VecOf<V>::T;
+  constexpr int NP = K > 0 ? K : kMaxLeaves;       // operand slots
+  constexpr int B = K > 0 ? kTileBatch : kProgBatch;
+  const int np = K > 0 ? K : e.n_push;
+  const int lane = threadIdx.x & 31;
+  const int G = 1 << group_log2;             // lanes per row
+  const int P = 32 >> group_log2;            // rows per warp step
+  const int g = lane >> group_log2;          // this lane's group
+  const int gl = lane & (G - 1);             // its lane within the group
+  const int NV = W / V;                      // vectors per row
+  const int ncb = (NV + G - 1) / G;          // column blocks
+  const int steps = (kTileTuples + P - 1) / P;
+  const long long b =
+      ((long long)blockIdx.x * kTileWarps + (threadIdx.x >> 5)) * kTileTuples;
+  if (b >= src.T) return;                    // whole warp: warp-uniform
+  const int nvalid = (int)min((long long)kTileTuples, src.T - b);
+  const bool live = lane < nvalid;
+
+  // lane j: the row ids of tuple b + j, one per operand (gather form)
+  int id[NP];
+#pragma unroll
+  for (int p = 0; p < NP; ++p) id[p] = 0;
+  if constexpr (Src::kGather) {
+    if (src.pair_ids) {
+      int2 two = make_int2(0, 0);
+      if (live)
+        two = __ldg(reinterpret_cast<const int2*>(src.tuples) + b + lane);
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        if (p < np) id[p] = clamp_last(e.col[p] ? two.y : two.x, src.last);
+    } else {
+      const int32_t* tup = src.tuples + (b + lane) * src.cols;
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        if (p < np && live) id[p] = clamp_last(__ldg(tup + e.col[p]),
+                                               src.last);
+    }
+  }
+
+  int res = 0;
+  for (int j0 = 0; j0 < steps; j0 += B) {
+    // the operand rows of each step of the batch
+    const VT* row[B][NP];
+    bool ok[B];
+#pragma unroll
+    for (int j = 0; j < B; ++j) {
+      const int idx = (j0 + j) * P + g;      // tile position of the tuple
+      ok[j] = j0 + j < steps && idx < nvalid;
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        if (p < np) {
+          if constexpr (Src::kGather) {
+            const int r = __shfl_sync(kFull, id[p], idx & 31);
+            row[j][p] = reinterpret_cast<const VT*>(src.data) + (size_t)r * NV;
+          } else {
+            row[j][p] = reinterpret_cast<const VT*>(src.ptr[p]) +
+                        (size_t)(b + (ok[j] ? idx : 0)) * NV;
+          }
+        } else {
+          row[j][p] = nullptr;
+        }
+      }
+    }
+    uint32_t acc[B];
+#pragma unroll
+    for (int j = 0; j < B; ++j) acc[j] = 0;
+    for (int cb = 0; cb < ncb; ++cb) {
+      const int c = cb * G + gl;             // this lane's vector of a row
+      const bool cin = c < NV;
+      VT x[B][NP];
+#pragma unroll
+      for (int j = 0; j < B; ++j)
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+          x[j][p] = (p < np && ok[j] && cin) ? __ldg(row[j][p] + c)
+                                             : vzero<VT>();
+#pragma unroll
+      for (int j = 0; j < B; ++j) acc[j] += vpopc(eval_expr<K>(e, x[j]));
+    }
+    // sum each group; lane L keeps tuple L's sum (step L / P, group L % P)
+#pragma unroll
+    for (int j = 0; j < B; ++j) {
+      uint32_t sum = acc[j];
+      for (int o = G >> 1; o > 0; o >>= 1)
+        sum += __shfl_xor_sync(kFull, sum, o);
+      const uint32_t mine =
+          __shfl_sync(kFull, sum, (lane & (P - 1)) << group_log2);
+      if ((lane >> (5 - group_log2)) == j0 + j) res = (int)mine;
+    }
+  }
+  if (live) out[b + lane] = res;
+}
+
+template <class Src, int K, int V>
+int launch_tile(const Src& src, const Expr& e, int W, int32_t* out,
+                cudaStream_t stream) {
+  const long long per_block = (long long)kTileWarps * kTileTuples;
+  const long long blocks = (src.T + per_block - 1) / per_block;
+  if (blocks < 1 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  tile_popcount_kernel<Src, K, V><<<(unsigned)blocks, kTileWarps * 32, 0,
+                                    stream>>>(
+      src, e, W, group_log2_for(W / V), out);
+  return (int)cudaGetLastError();
+}
+
+template <class Src, int K>
+int launch_tile_v(int V, const Src& src, const Expr& e, int W, int32_t* out,
+                  cudaStream_t stream) {
+  switch (V) {
+    case 4: return launch_tile<Src, K, 4>(src, e, W, out, stream);
+    case 2: return launch_tile<Src, K, 2>(src, e, W, out, stream);
+    default: return launch_tile<Src, K, 1>(src, e, W, out, stream);
+  }
+}
+
+template <class Src>
+int launch_tile_k(int and_k, int V, const Src& src, const Expr& e, int W,
+                  void* out, void* stream) {
+  int32_t* o = static_cast<int32_t*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (and_k) {
+    case 2: return launch_tile_v<Src, 2>(V, src, e, W, o, s);
+    case 3: return launch_tile_v<Src, 3>(V, src, e, W, o, s);
+    case 4: return launch_tile_v<Src, 4>(V, src, e, W, o, s);
+    default: return launch_tile_v<Src, 0>(V, src, e, W, o, s);
+  }
+}
+
+// Check the packed program (opcodes, leaf indices, stack discipline, the
+// AND fast path's claim and, when tuple_cols > 0, that every leaf's column
+// exists) and rewrite it into e: operands in push order (leaf[p] is the
+// leaf operand p reads) and ops on their positions. *and_k is K when the
+// program is the K-way AND of leaves 0..K-1 in order (K = 2, 3, 4: the
+// template), else 0.
+bool compile_expr(const int* packed, int tuple_cols, Expr* e,
+                  int leaf[kMaxLeaves], int* and_k) {
+  const int n_instr = packed[0], n_leaves = packed[1], claim = packed[2];
+  const int* op = packed + 3;
+  const int* arg = packed + 3 + kMaxInstr;
+  const int* slot = packed + 3 + 2 * kMaxInstr;
+  if (n_instr < 1 || n_instr > kMaxInstr || n_leaves < 1 ||
+      n_leaves > kMaxLeaves || claim < 0 || claim > n_leaves)
+    return false;
+  for (int j = 0; j < n_leaves; ++j)
+    if (tuple_cols > 0 && (slot[j] < 0 || slot[j] >= tuple_cols))
+      return false;
+  int st[kMaxLeaves];              // stack of operand positions
+  int sp = 0, np = 0, nop = 0;
+  for (int i = 0; i < n_instr; ++i) {
+    if (op[i] == kPush) {
+      if (arg[i] < 0 || arg[i] >= n_leaves || np == kMaxLeaves) return false;
+      leaf[np] = arg[i];
+      e->col[np] = slot[arg[i]];
+      st[sp++] = np++;
+    } else if (op[i] >= kAnd && op[i] <= kAndNot && sp >= 2) {
+      const int bpos = st[--sp];
+      e->code[nop++] = op[i] << 6 | st[sp - 1] << 3 | bpos;
+    } else {
+      return false;
+    }
+  }
+  if (sp != 1) return false;
+  e->n_push = np;
+  for (int p = np; p < kMaxLeaves; ++p) { leaf[p] = 0; e->col[p] = 0; }
+  for (int i = nop; i < kMaxLeaves - 1; ++i) e->code[i] = 0;
+  // the K-way AND: operand p is leaf p, op i is x[0] &= x[i + 1]
+  bool chain = np >= 2;
+  for (int p = 0; p < np && chain; ++p) chain = leaf[p] == p;
+  for (int i = 0; i < nop && chain; ++i)
+    chain = e->code[i] == (kAnd << 6 | (i + 1));
+  if (claim != 0 && (!chain || claim != np)) return false;
+  *and_k = chain && np <= 4 ? np : 0;
   return true;
 }
 
@@ -278,41 +455,15 @@ bool grid_for(long long count, int group_log2, unsigned* blocks) {
 
 constexpr int kSegWarps = 4;   // warps per block
 constexpr int kSegBatch = 4;   // tuple steps whose row loads are in flight
-constexpr unsigned kFull = 0xffffffffu;
 // shared memory the segment cache of one block may take (the default limit)
 constexpr int kSegSmemBytes = 48 * 1024;
 // most segments and tails one launch takes: positions stay 32-bit
 constexpr long long kSegMaxCount = 1LL << 30;
 
-template <int V> struct VecOf;
-template <> struct VecOf<1> { using T = uint32_t; };
-template <> struct VecOf<2> { using T = uint2; };
-template <> struct VecOf<4> { using T = uint4; };
-
-__device__ __forceinline__ uint32_t vand(uint32_t a, uint32_t b) { return a & b; }
-__device__ __forceinline__ uint2 vand(uint2 a, uint2 b) {
-  return make_uint2(a.x & b.x, a.y & b.y);
-}
-__device__ __forceinline__ uint4 vand(uint4 a, uint4 b) {
-  return make_uint4(a.x & b.x, a.y & b.y, a.z & b.z, a.w & b.w);
-}
-__device__ __forceinline__ uint32_t vpopc(uint32_t a) { return __popc(a); }
-__device__ __forceinline__ uint32_t vpopc(uint2 a) {
-  return __popc(a.x) + __popc(a.y);
-}
-__device__ __forceinline__ uint32_t vpopc(uint4 a) {
-  return __popc(a.x) + __popc(a.y) + __popc(a.z) + __popc(a.w);
-}
-template <typename VT> __device__ __forceinline__ VT vzero() { return VT{}; }
-
 template <typename OffT>
 __device__ __forceinline__ int seg_end(const OffT* __restrict__ off, int i,
                                        int S) {
   return i <= S ? (int)__ldg(off + i) : INT_MAX;
-}
-
-__device__ __forceinline__ int clamp_id(int id, int n) {
-  return id < 0 ? 0 : (id >= n ? n - 1 : id);
 }
 
 // Position of the r-th set bit of m (r counted from 0).
@@ -489,15 +640,6 @@ segment_popcount_kernel(const uint32_t* __restrict__ data, int n, int W,
   }
 }
 
-// Rows are read V words at a time: 4 when W % 4 == 0 and the matrix is
-// 16-byte aligned, 2 when W is even and it is 8-byte aligned, else 1.
-int vector_words(int W, const void* data) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(data);
-  if (W % 4 == 0 && a % 16 == 0) return 4;
-  if (W % 2 == 0 && a % 8 == 0) return 2;
-  return 1;
-}
-
 // Lanes per row: the power of two >= the row's vectors, at most 32.
 int segment_group_log2(int W, int V) { return group_log2_for(W / V); }
 
@@ -578,59 +720,51 @@ const char* pg_error_string(int code) {
 int pg_fused_gather_popcount(const void* data, long long n, int W,
                              const void* tuples, long long T, int tuple_cols,
                              const int* program, void* out, void* stream) {
-  Program p;
-  unsigned blocks;
-  const int g = group_log2_for(W);
-  if (!unpack(program, tuple_cols, &p) || n < 1 || W < 1 || tuple_cols < 1 ||
-      !grid_for(T, g, &blocks))
+  Expr e;
+  int leaf[kMaxLeaves], and_k;
+  if (!compile_expr(program, tuple_cols, &e, leaf, &and_k) || n < 1 ||
+      W < 1 || tuple_cols < 1)
     return (int)cudaErrorInvalidValue;
-  const uint32_t* d = static_cast<const uint32_t*>(data);
-  const int32_t* tu = static_cast<const int32_t*>(tuples);
-  int32_t* o = static_cast<int32_t*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (p.and_k) {
-    case 2:
-      gather_popcount_kernel<2><<<blocks, kThreads, 0, s>>>(d, n, W, tu, T, tuple_cols, p, g, o);
-      break;
-    case 3:
-      gather_popcount_kernel<3><<<blocks, kThreads, 0, s>>>(d, n, W, tu, T, tuple_cols, p, g, o);
-      break;
-    case 4:
-      gather_popcount_kernel<4><<<blocks, kThreads, 0, s>>>(d, n, W, tu, T, tuple_cols, p, g, o);
-      break;
-    default:
-      gather_popcount_kernel<0><<<blocks, kThreads, 0, s>>>(d, n, W, tu, T, tuple_cols, p, g, o);
-  }
-  return (int)cudaGetLastError();
+  const GatherSrc src{
+      static_cast<const uint32_t*>(data), static_cast<const int32_t*>(tuples),
+      T, tuple_cols, (int)(n - 1 < INT_MAX ? n - 1 : INT_MAX),
+      tuple_cols == 2 && reinterpret_cast<uintptr_t>(tuples) % 8 == 0};
+  return launch_tile_k(and_k, vector_words(W, data), src, e, W, out, stream);
 }
 
 int pg_fused_rows_popcount(const void* const* rows, int k, long long E, int W,
                            const int* program, void* out, void* stream) {
-  Program p;
-  Rows r;
-  unsigned blocks;
-  const int g = group_log2_for(W);
-  if (!unpack(program, 0, &p) || k != p.n_leaves || W < 1 ||
-      !grid_for(E, g, &blocks))
+  Expr e;
+  int leaf[kMaxLeaves], and_k;
+  if (!compile_expr(program, 0, &e, leaf, &and_k) || k != program[1] ||
+      W < 1)
     return (int)cudaErrorInvalidValue;
-  for (int j = 0; j < kMaxLeaves; ++j)
-    r.ptr[j] = j < k ? static_cast<const uint32_t*>(rows[j]) : nullptr;
-  int32_t* o = static_cast<int32_t*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (p.and_k) {
-    case 2:
-      rows_popcount_kernel<2><<<blocks, kThreads, 0, s>>>(r, E, W, p, g, o);
-      break;
-    case 3:
-      rows_popcount_kernel<3><<<blocks, kThreads, 0, s>>>(r, E, W, p, g, o);
-      break;
-    case 4:
-      rows_popcount_kernel<4><<<blocks, kThreads, 0, s>>>(r, E, W, p, g, o);
-      break;
-    default:
-      rows_popcount_kernel<0><<<blocks, kThreads, 0, s>>>(r, E, W, p, g, o);
+  RowsSrc src;
+  src.T = E;
+  uintptr_t bases = 0;                       // every operand's address bits
+  for (int p = 0; p < kMaxLeaves; ++p) {
+    src.ptr[p] = p < e.n_push ? static_cast<const uint32_t*>(rows[leaf[p]])
+                              : nullptr;
+    bases |= reinterpret_cast<uintptr_t>(src.ptr[p]);
   }
-  return (int)cudaGetLastError();
+  return launch_tile_k(and_k, vector_words(W, reinterpret_cast<void*>(bases)),
+                       src, e, W, out, stream);
+}
+
+// The layout both [T, k] kernels pick for rows of W words at data:
+// layout[0] = words per vector load, [1] = lanes per row, [2] = rows per
+// warp step, [3] = column blocks, [4] = tuples per warp, [5] = steps per
+// batch of row loads (k-way AND), [6] = warps per block.
+void pg_fused_tile_layout(int W, const void* data, int* layout) {
+  const int V = vector_words(W, data);
+  const int glog = group_log2_for(W / V);
+  layout[0] = V;
+  layout[1] = 1 << glog;
+  layout[2] = 32 >> glog;
+  layout[3] = (W / V + (1 << glog) - 1) >> glog;
+  layout[4] = kTileTuples;
+  layout[5] = kTileBatch;
+  layout[6] = kTileWarps;
 }
 
 // popcount(B_heads[s,0] & ... & B_heads[s,k-2] & B_tails[t]) for every

@@ -6,6 +6,8 @@ Three forms, the port of ``repro.kernels.fused_expr`` (see
   * :func:`fused_gather_popcount` — per tuple, gather the rows its leaves
     name from the int32[n, W] sketch matrix, evaluate the program, popcount.
   * :func:`fused_rows_popcount` — the same over dense int32[E, W] operands.
+    Both run one kernel body, in tiles of tuples per warp, with two row
+    sources (:func:`tile_layout` reports its layout).
   * :func:`fused_segment_popcount` — the k-way AND (k = 2..4) of the gather
     form for tuples that come in segments sharing their first k-1 rows,
     which the kernel reads once per segment (the clique passes' launch).
@@ -79,6 +81,8 @@ def _lib() -> ctypes.CDLL:
         lib.pg_fused_segment_popcount.restype = ctypes.c_int
         lib.pg_fused_segment_layout.argtypes = [ctypes.c_int, _VOIDP, _VOIDP]
         lib.pg_fused_segment_layout.restype = None
+        lib.pg_fused_tile_layout.argtypes = [ctypes.c_int, _VOIDP, _VOIDP]
+        lib.pg_fused_tile_layout.restype = None
         lib.pg_error_string.argtypes = [ctypes.c_int]
         lib.pg_error_string.restype = ctypes.c_char_p
     return lib
@@ -271,7 +275,22 @@ def segment_layout(data: torch.Tensor) -> Dict[str, int]:
                      "smem_bytes"), layout))
 
 
+def tile_layout(data: torch.Tensor) -> Dict[str, int]:
+    """The layout the [T, k] gather kernel picks for ``data`` (a CUDA
+    int32[n, W] matrix; the dense kernel picks the same for operands with
+    the same W and alignment): words per vector load, lanes per row, rows
+    per warp step, column blocks, tuples per warp, steps per batch of row
+    loads and warps per block."""
+    layout = (ctypes.c_int * 7)()
+    _lib().pg_fused_tile_layout(data.shape[1], data.data_ptr(),
+                                ctypes.addressof(layout))
+    return dict(zip(("vector_words", "lanes_per_row", "rows_per_step",
+                     "column_blocks", "tuples_per_warp", "steps_per_batch",
+                     "warps_per_block"), layout))
+
+
 __all__ = ["FORM_LAUNCHES", "LAUNCHES", "SEGMENT_CHUNK_TILES",
            "SEGMENT_MAX_COUNT",
            "fused_gather_popcount", "fused_rows_popcount",
-           "fused_segment_popcount", "reset_launch_counts", "segment_layout"]
+           "fused_segment_popcount", "reset_launch_counts", "segment_layout",
+           "tile_layout"]

@@ -41,33 +41,109 @@ def cuda():
 
 
 def _programs():
-    u, v, w, x = setexpr.rows(4)
+    """Every program the kernels take a path for: the k-way ANDs (the
+    template; the last reads permuted columns) and interpreted programs of
+    up to 8 leaves, over tuples of 8 columns."""
+    r = setexpr.rows(8)
+    u, v, w, x = r[:4]
+    chain = program.and_program(3)
     return [setexpr.compile_program(e) for e in
             (u & v, u & v & w, u & v & w & x, u | v, (u & v) - w,
-             (u | (v & w)) - (x | u), setexpr.Row(3) & setexpr.Row(1))]
+             (u | (v & w)) - (x | u), setexpr.Row(3) & setexpr.Row(1),
+             setexpr.and_all(*r),
+             ((r[0] & r[1]) | (r[2] & r[3])) - ((r[4] | r[5]) & (r[6] | r[7])))
+            ] + [program.Program(ops=chain.ops, args=chain.args,
+                                 slots=(4, 0, 2))]
 
 
-@pytest.mark.parametrize("w", [1, 2, 8, 32, 34, 600])
-@pytest.mark.parametrize("t", [1, 33, 4099])
+def _shifted(x):
+    """A copy of contiguous ``x`` whose base lies one word past an
+    allocation's start (4-byte but not 8- or 16-byte aligned)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 8, 30, 31, 32, 33, 34, 128, 129,
+                               600])
+@pytest.mark.parametrize("t", [1, 15, 16, 17, 31, 32, 33, 65, 4099])
 def test_kernels_equal_plain_versions(cuda, w, t):
-    """Both forms, every program, ragged T, widths below and above a warp."""
+    """Both forms, every program, T at the edges of 16- and 32-tuple
+    tiles, W at every vector width (16-, 8- and 4-byte loads) and in
+    column blocks (W > 128), operands aligned and one word past an
+    allocation's start (the vector width falls back), ids outside [0, n)
+    clamped, and two-column tuples (one 8-byte id load per tuple, aligned
+    or not)."""
     gen = torch.Generator(device=cuda).manual_seed(w * 10007 + t)
     data = torch.randint(-2**31, 2**31 - 1, (997, w), dtype=torch.int32,
                          device=cuda, generator=gen)
-    tuples = torch.randint(0, 997, (t, 4), dtype=torch.int32, device=cuda,
+    data[5] = -1
+    tuples = torch.randint(-3, 1000, (t, 8), dtype=torch.int32, device=cuda,
                            generator=gen)
-    for prog in _programs():
-        before = dict(fused_expr.LAUNCHES)
-        got = fused_expr.fused_gather_popcount(data, tuples, prog)
-        rows = [data[tuples[:, s].long()] for s in prog.slots]
-        got_r = fused_expr.fused_rows_popcount(rows, prog)
-        assert torch.equal(got, ref.fused_gather_popcount(data, tuples, prog))
-        assert torch.equal(got_r, ref.fused_rows_popcount(rows, prog))
-        assert torch.equal(got, got_r)
-        assert fused_expr.LAUNCHES["fused_gather_popcount"] == \
-            before["fused_gather_popcount"] + 1
-        assert fused_expr.LAUNCHES["fused_rows_popcount"] == \
-            before["fused_rows_popcount"] + 1
+    for d in (data, _shifted(data)):
+        for prog in _programs():
+            before = dict(fused_expr.LAUNCHES)
+            got = fused_expr.fused_gather_popcount(d, tuples, prog)
+            rows = [ref.gather_rows(d, tuples[:, s]) for s in prog.slots]
+            if d is not data:
+                rows[0] = _shifted(rows[0])
+            got_r = fused_expr.fused_rows_popcount(rows, prog)
+            assert torch.equal(got, ref.fused_gather_popcount(d, tuples,
+                                                              prog))
+            assert torch.equal(got_r, ref.fused_rows_popcount(rows, prog))
+            assert torch.equal(got, got_r)
+            assert fused_expr.LAUNCHES["fused_gather_popcount"] == \
+                before["fused_gather_popcount"] + 1
+            assert fused_expr.LAUNCHES["fused_rows_popcount"] == \
+                before["fused_rows_popcount"] + 1
+        pairs = tuples[:, :2].contiguous()
+        for tp in (pairs, _shifted(pairs), tuples[:, [6, 2]].contiguous()):
+            p = program.and_program(2)
+            assert torch.equal(fused_expr.fused_gather_popcount(d, tp, p),
+                               ref.fused_gather_popcount(d, tp, p))
+
+
+@pytest.mark.parametrize("w", [3, 32, 129])
+def test_kernels_read_permuted_columns(cuda, w):
+    """Tuples of 5 columns whose leaves read permuted slots (a leaf read
+    twice, columns skipped) equal the plain version in both forms."""
+    gen = torch.Generator(device=cuda).manual_seed(w)
+    data = torch.randint(-2**31, 2**31 - 1, (500, w), dtype=torch.int32,
+                         device=cuda, generator=gen)
+    tuples = torch.randint(-2, 502, (1000, 5), dtype=torch.int32, device=cuda,
+                           generator=gen)
+    R = setexpr.Row
+    chain = program.and_program(4)
+    for prog in [setexpr.compile_program(e) for e in (
+            (R(4) | R(1)) - R(3), R(2) & (R(0) | R(4)) & R(3),
+            (R(4) - R(1)) | (R(0) & R(4)))] + [
+            program.Program(ops=chain.ops, args=chain.args,
+                            slots=(3, 4, 0, 2)),
+            program.Program(ops=(program.PUSH, program.PUSH, program.AND),
+                            args=(0, 1, 0), slots=(4, 1))]:
+        want = ref.fused_gather_popcount(data, tuples, prog)
+        assert torch.equal(fused_expr.fused_gather_popcount(data, tuples,
+                                                            prog), want)
+        rows = [ref.gather_rows(data, tuples[:, s]) for s in prog.slots]
+        assert torch.equal(fused_expr.fused_rows_popcount(rows, prog), want)
+
+
+def test_tile_layout(cuda):
+    """The [T, k] kernels' layout: 16-byte loads by groups of 8 lanes at
+    W = 32 (four rows a step); 8-byte loads by 16 lanes at W = 30 (15
+    vectors); 4-byte loads at W = 33 (33 vectors: one row a step, in two
+    column blocks), and at W = 32 when the base is not 16-byte aligned."""
+    flat = torch.zeros(1 + 64 * 33, dtype=torch.int32, device=cuda)
+    layout = {w: fused_expr.tile_layout(flat[:64 * w].view(64, w))
+              for w in (32, 30, 33)}
+    assert {w: (l["vector_words"], l["lanes_per_row"], l["rows_per_step"],
+                l["column_blocks"]) for w, l in layout.items()} == {
+        32: (4, 8, 4, 1), 30: (2, 16, 2, 1), 33: (1, 32, 1, 2)}
+    assert (layout[32]["tuples_per_warp"], layout[32]["steps_per_batch"]) \
+        == (16, 2)
+    assert fused_expr.tile_layout(flat[1:1 + 64 * 32].view(64, 32))[
+        "vector_words"] == 1
 
 
 def test_out_of_range_ids_clamp_like_plain(cuda):
@@ -257,15 +333,6 @@ def test_minhash_kernels_equal_plain_versions(cuda, k, e):
         assert torch.equal(got, getattr(ref, name)(a, b, 150))
         assert torch.equal(getattr(ops, name)(a, b, 150), got)
         assert mh_intersect.LAUNCHES[name] == before + 2 * (e > 0)
-
-
-def _shifted(x):
-    """A copy of contiguous ``x`` whose base lies one word past an
-    allocation's start (4-byte but not 8- or 16-byte aligned)."""
-    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
-    out = buf[1:].view(x.shape)
-    out.copy_(x)
-    return out
 
 
 @pytest.mark.parametrize("k", [1, 4, 7, 24, 28, 31, 32, 33, 128, 256])

@@ -24,7 +24,8 @@ from repro_torch.kernels import ref as TR
 
 
 def _exprs(mod):
-    u, v, w, x = mod.rows(4)
+    r = mod.rows(8)
+    u, v, w, x = r[:4]
     return {
         "and2": u & v,
         "and3": u & v & w,
@@ -33,6 +34,10 @@ def _exprs(mod):
         "andnot": (u & v) - w,
         "nested": (u | (v & w)) - (x | u),
         "sparse_slots": mod.Row(1) & mod.Row(3),
+        # 8 leaves, 15 instructions: the kernels' interpreted path at its
+        # widest
+        "leaves8": ((r[0] & r[1]) | (r[2] & r[3]))
+        - ((r[4] | r[5]) & (r[6] | r[7])),
     }
 
 
@@ -49,15 +54,22 @@ def _t(a: np.ndarray) -> torch.Tensor:
         a.view(np.int32) if a.dtype == np.uint32 else a))
 
 
-@pytest.mark.parametrize("w", [2, 8, 34])
-@pytest.mark.parametrize("t", [1, 37, 257])
+#: (t, w): ragged T with W below and above a warp, then T at the edges of
+#: the kernels' tiles (16 and 32 tuples) with odd and wide W (4-byte
+#: loads, column blocks)
+_GATHER_SHAPES = [(t, w) for w in (2, 8, 34) for t in (1, 37, 257)] + [
+    (31, 3), (32, 31), (33, 129), (65, 31), (16, 3), (17, 129)]
+
+
+@pytest.mark.parametrize("t,w", _GATHER_SHAPES)
 @pytest.mark.parametrize("name", NAMES)
 def test_gather_form_identical_to_reference(name, w, t):
     """Plain fused_gather_popcount and CompiledSetExpr.ones equal the
-    reference's CompiledSetExpr(use_kernel=False).ones (ragged T)."""
+    reference's CompiledSetExpr(use_kernel=False).ones (ragged T, tile
+    edges, odd and wide W, up to 8 leaves)."""
     rng = np.random.default_rng(NAMES.index(name) * 10000 + w * 1000 + t)
     bloom = _words(rng, (50, w))
-    tuples = rng.integers(0, 50, size=(t, 4)).astype(np.int32)
+    tuples = rng.integers(0, 50, size=(t, 8)).astype(np.int32)
     ref = np.asarray(RX.compile_expr(_exprs(RX)[name], use_kernel=False)
                      .ones(jnp.asarray(bloom), jnp.asarray(tuples)))
     ce = TX.compile_expr(_exprs(TX)[name], use_kernel=False)
@@ -98,21 +110,27 @@ def test_and_entry_points_identical_to_reference_oracles(w):
         np.asarray(RR.bf_union_pairs(jnp.asarray(a), jnp.asarray(b))))
 
 
-@pytest.mark.parametrize("w", [2, 8, 34])
-@pytest.mark.parametrize("name", ["and2", "and3", "or", "nested"])
-def test_rows_form_identical_to_reference_interpret(name, w):
+#: (w, e): E = 24 in blocks of 8 rows, then E at the edges of the kernels'
+#: tiles, one block each, with odd and wide W
+_ROWS_SHAPES = [pytest.param(w, 24, id=str(w)) for w in (2, 8, 34)] + [
+    pytest.param(w, e, id=f"{w}-{e}")
+    for w, e in ((3, 31), (31, 32), (129, 33), (31, 65))]
+
+
+@pytest.mark.parametrize("w,e", _ROWS_SHAPES)
+@pytest.mark.parametrize("name", ["and2", "and3", "or", "nested", "leaves8"])
+def test_rows_form_identical_to_reference_interpret(name, w, e):
     """Plain fused_rows_popcount and ones_rows equal the reference's dense
     Pallas kernel run in interpret mode."""
-    rng = np.random.default_rng(w * 7 + len(name))
+    rng = np.random.default_rng(w * 7 + len(name) + e)
     ce = TX.compile_expr(_exprs(TX)[name], use_kernel=False)
-    e = 24
     operands = [_words(rng, (e, w)) for _ in ce.slots]
     rexpr = _exprs(RX)[name]
     slots = RX.expr_slots(rexpr)
     eval_fn = RX._make_eval(rexpr, {s: i for i, s in enumerate(slots)})
     ref = np.asarray(RF.fused_rows_popcount(
-        [jnp.asarray(o) for o in operands], eval_fn, block_e=8, block_w=w,
-        interpret=True))
+        [jnp.asarray(o) for o in operands], eval_fn,
+        block_e=8 if e % 8 == 0 else e, block_w=w, interpret=True))
     got = TF.fused_rows_popcount([_t(o) for o in operands], ce.program)
     assert np.array_equal(got.numpy(), ref)
     assert np.array_equal(ce.ones_rows(*[_t(o) for o in operands]).numpy(),
