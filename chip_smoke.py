@@ -62,16 +62,44 @@ Phases, each printed as it runs:
      each other and the plain version and timed in turns, each beside its
      bound; the k-Hash pass must launch only the rows form of
      ``khash_match_pairs``, which is timed on the pass's first launch.
+  3e. The exact baseline and local clustering at scale 21. The exact
+     session (``session(g, None)``): its per-edge pass and
+     ``exact_triangle_count`` (times, lookups, peak memory; no kernel
+     launch), the same count with a binary search inside the CSR row in
+     place of the port's edge-key search (time compared, count equal),
+     the Bloom TC of phase 3 against the exact count, and the
+     exact counts of 2,000 sampled edges (hub edges included) against
+     np.intersect1d. ``local_cluster`` with the launcher's 8 seeds (alpha
+     0.15, eps 1e-4, auto mode: the sparse push) on the Bloom and the
+     exact session, launch counts zeroed just before and read just after:
+     the Bloom sweep must launch ``fused_rows_popcount`` (AND2) and
+     nothing else, the exact one nothing; the dense frontier must give the
+     same supports and equal profiles where the orders agree; the exact
+     best conductances equal a host recount. Then a batch of 128 seeds
+     chosen by degree (the top hubs, the highest degrees that still push,
+     and the largest supports of a pool drawn across degree bands) through
+     ``local_cluster`` on both sessions, at eps 1e-4 and again at 1e-5
+     (forced sparse: supports up to the sweep's cap, hub seeds that
+     push), with its push's expansion slots per round, supports,
+     launches and host-recounted conductances; a spill forced by a
+     frontier cap below the largest frontiers, which must fall back to
+     the dense push with the same supports; and the dense AND2 on both
+     Bloom sweeps' operands (E = 65,536) against its plain version on
+     every row and on the rows of real steps alone, timed L2 flushed and
+     warm beside its bound.
   4. Where the time goes: a warm Bloom pass (and the [T, k] gather
      kernel's time per launch in it), a Bloom sketch build, warm k-Hash
-     and 1-Hash-naive passes and the scale-21 4-clique pass under
+     and 1-Hash-naive passes, the scale-21 4-clique pass, the exact
+     per-edge pass and a warm 8-seed Bloom ``local_cluster`` under
      torch.profiler (device busy time, idle share, top kernels).
   5. A scale-12 graph against an independent numpy reference of the same
      definitions: Bloom words, k-Hash, 1-Hash and KMV sketches identical;
-     TC (and the Bloom LCC) within rtol 1e-4 of the numpy estimators; the
-     Bloom 4- and 5-clique estimates within rtol 1e-5 of numpy's, and the
-     exact branch's counts equal to 4,032,443 and 26,522,168 (brute
-     force).
+     TC (and the Bloom LCC) within rtol 1e-4 of the numpy estimators;
+     ``exact_triangle_count`` equal to trace(A³)/6 and the exact
+     session's Adamic–Adar / Resource-Allocation within rtol 1e-5 of
+     numpy sums over np.intersect1d; the Bloom 4- and 5-clique estimates
+     within rtol 1e-5 of numpy's, and the exact branch's counts equal to
+     4,032,443 and 26,522,168 (brute force).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -1239,13 +1267,507 @@ def phase_cliques(torch, np, TE, TG, kernels, g, sess):
                 timing=timing)
 
 
+#: local clustering as the launcher runs it: 8 seeds from
+#: default_rng(7) (``mine --algos localcluster``), alpha, eps
+LC_SEEDS, LC_ALPHA, LC_EPS = 8, 0.15, 1e-4
+#: the degree-chosen batch whose sweep times the dense AND2 (E = 128 x
+#: 512): SWEEP_SEEDS seeds, of which TOP_HUBS hubs and EDGE_PUSHERS of the
+#: highest degree that pushes, the rest the largest supports of a pool of
+#: POOL_PER_BAND vertices per degree band from default_rng(POOL_SEED)
+SWEEP_SEEDS, TOP_HUBS, EDGE_PUSHERS = 128, 8, 8
+POOL_PER_BAND, POOL_SEED = 32, 11
+#: seeds of the forced spill (dense push at [SPILL_SEEDS, n])
+SPILL_SEEDS = 8
+#: the batch's second push tolerance, through the sparse push (auto mode
+#: would take the dense one): supports up to the sweep's cap
+DEEP_EPS = 1e-5
+
+
+def launcher_seeds(np, n: int, count: int):
+    """``count`` seed ids from the launcher's generator, int32."""
+    return np.random.default_rng(7).integers(0, n, size=count).astype(
+        np.int32)
+
+
+def host_intersections(np, indptr, indices, pairs) -> list:
+    """|N_u ∩ N_v| per pair, by np.intersect1d over the host CSR."""
+    return [np.intersect1d(indices[indptr[u]:indptr[u + 1]],
+                           indices[indptr[v]:indptr[v + 1]],
+                           assume_unique=True).size for u, v in pairs]
+
+
+def row_member(torch, g):
+    """z ∈ N_a by binary search inside a's CSR row (int32 positions): the
+    lookup that phase 3e times against the port's edge-key search."""
+    indptr = g.indptr.to(torch.int32)
+    indices = g.indices
+    last = indices.numel() - 1
+    steps = int(g.d_max).bit_length()
+
+    def member(a, z):
+        z = z.to(torch.int32)
+        lo = indptr[a]
+        end = indptr[a + 1]
+        hi = end.clone()
+        for _ in range(steps):
+            mid = (lo + hi) >> 1
+            less = indices[mid.clamp(max=last)] < z
+            live = lo < hi
+            lo = torch.where(live & less, mid + 1, lo)
+            hi = torch.where(live & ~less, mid, hi)
+        return (lo < end) & (indices[lo.clamp(max=last)] == z)
+    return member
+
+
+def in_row_triangle_count(torch, exact, g, edge_chunk: int = 65536) -> int:
+    """``exact_triangle_count`` with :func:`row_member` as its lookup."""
+    member = row_member(torch, g)
+    total = torch.zeros((), dtype=torch.int64, device=g.edges.device)
+    for s in range(0, g.m, edge_chunk):
+        total += exact.common_count(g, g.edges[s:s + edge_chunk],
+                                    member).sum()
+    return int(total) // 3
+
+
+def phase_exact(torch, np, TE, kernels, g, estimates: dict):
+    """Phase 3e, first half: the exact session's per-edge pass and
+    ``exact_triangle_count`` at scale 21 (and the same count with the
+    lookup the port did not choose, a search inside the CSR row), the TC
+    estimates of phases 3/3b (``estimates``: sketch -> TC) against the
+    exact count, and sampled per-edge counts against numpy."""
+    from repro_torch.core import exact
+    from repro_torch.core.graph import edge_keys
+
+    deg = g.deg.to(torch.int64)
+    lookups = int(torch.minimum(deg[g.edges[:, 0].long()],
+                                deg[g.edges[:, 1].long()]).sum())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    sx = TE.session(g, None, device="cuda")
+    cards = sx.edge_cardinalities()
+    torch.cuda.synchronize()
+    pass_s = time.perf_counter() - t0
+    tc_sess = float(sx.triangle_count())
+    launches = kernels.launch_counts()
+    pass_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tc = int(exact.exact_triangle_count(g))
+    tc_s = time.perf_counter() - t0
+    tc_peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    tc_rows = in_row_triangle_count(torch, exact, g)
+    rows_s = time.perf_counter() - t0
+    total = int(cards.to(torch.float64).sum())
+    rel = {kind: (est - tc) / tc for kind, est in estimates.items()}
+    print(f"phase 3e: exact session (sketch=None), scale {SCALE}: per-edge "
+          f"pass {pass_s:.3f} s ({lookups} lookups, {lookups / pass_s:.4g}/s"
+          f"), peak device memory {pass_peak} bytes; session TC "
+          f"{tc_sess:.9g}; exact_triangle_count {tc} in {tc_s:.3f} s (peak "
+          f"{tc_peak} bytes); launches {sum(launches.values())}", flush=True)
+    print(f"  lookups compared: edge-key search (the port's) {tc_s:.3f} s, "
+          f"in-row binary search {rows_s:.3f} s ({rows_s / tc_s:.2f}x), "
+          f"same count {tc_rows}", flush=True)
+    print(f"  TC estimates against the exact {tc}: " + "; ".join(
+        f"{kind} {estimates[kind]:.9g} (relative error {rel[kind]:+.6f})"
+        for kind in estimates), flush=True)
+    require(sum(launches.values()) == 0,
+            f"the exact pass launched kernels: {launches}")
+    require(total == 3 * tc, f"per-edge counts sum to {total}, not 3 x {tc}")
+    require(tc_rows == tc, f"in-row search counts {tc_rows}, not {tc}")
+    require(math.isclose(tc_sess, tc, rel_tol=1e-5),
+            f"session TC {tc_sess} vs exact_triangle_count {tc}")
+    sample = hub_edge_sample(torch, np, g, hubs=4, per_hub=64, others=1744)
+    at = torch.searchsorted(edge_keys(g), sample[:, 0].long() * g.n
+                            + sample[:, 1].long())
+    want = host_intersections(np, g.indptr.cpu().numpy(),
+                              g.indices.cpu().numpy(),
+                              sample.cpu().numpy())
+    got = exact.exact_pair_cardinalities(g, sample).cpu().numpy()
+    require(got.tolist() == want and cards[at].cpu().numpy().astype(
+        np.int64).tolist() == want,
+            f"exact counts of {sample.shape[0]} sampled edges differ from "
+            "np.intersect1d")
+    print(f"  {sample.shape[0]} sampled edges (hub edges included, max "
+          f"count {max(want)}): exact counts and the session's equal "
+          f"np.intersect1d over the CSR", flush=True)
+    return sx, dict(pass_s=pass_s, lookups=lookups, pass_peak=pass_peak,
+                    tc=tc, tc_s=tc_s, tc_peak=tc_peak, tc_sess=tc_sess,
+                    rows_s=rows_s, rel_err=rel)
+
+
+def host_conductance(np, indptr, indices, deg, m: int, members) -> float:
+    """φ of a vertex set from the host CSR: cut / min(vol, 2m - vol)."""
+    nbrs = np.concatenate([indices[indptr[v]:indptr[v + 1]]
+                           for v in members])
+    cut = int((~np.isin(nbrs, members)).sum())
+    vol = int(deg[members].sum())
+    return cut / min(vol, 2 * m - vol)
+
+
+def phase_local_cluster(torch, np, kernels, g, sess, sx):
+    """Phase 3e, second half: ``local_cluster`` with the launcher's 8 seeds
+    on the Bloom and the exact sessions (counts zeroed just before each,
+    read just after), against the dense frontier and a host recount."""
+    from repro_torch.core.algorithms import localcluster as LC
+
+    seeds = launcher_seeds(np, g.n, LC_SEEDS)
+    indptr, indices = g.indptr.cpu().numpy(), g.indices.cpu().numpy()
+    deg = g.deg.cpu().numpy()
+    out = {}
+    for label, s in (("bf", sess), ("exact", sx)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = s.local_cluster(seeds, LC_ALPHA, LC_EPS)
+        torch.cuda.synchronize()
+        pass_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        forms = dict(kernels.fused_expr.FORM_LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        # the runs below launch kernels too; they are not counted
+        t0 = time.perf_counter()
+        s.local_cluster(seeds, LC_ALPHA, LC_EPS)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fr = LC.ppr_push_sparse(g, seeds, LC_ALPHA, LC_EPS)
+        torch.cuda.synchronize()
+        push_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        LC.sweep_cut(g, fr, s.sketch, s.plan)
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dense = s.local_cluster(seeds, LC_ALPHA, LC_EPS,
+                                frontier_mode="dense")
+        torch.cuda.synchronize()
+        dense_s = time.perf_counter() - t0
+        phi = res.best_conductance.cpu().numpy()
+        print(f"phase 3e: local_cluster, {label} session, {LC_SEEDS} seeds, "
+              f"alpha={LC_ALPHA} eps={LC_EPS}: sparse="
+              f"{res.frontier is not None} (cap {fr.cap}) spilled="
+              f"{res.spilled}; {res.iterations} push "
+              f"rounds; support {res.support.tolist()}; frontier sizes "
+              f"{fr.sizes().tolist()}; best sizes {res.best_size.tolist()}; "
+              f"best conductance {[round(float(x), 6) for x in phi]}; pass "
+              f"{pass_s:.3f} s, warm {warm_s:.3f} s (push {push_s:.3f} s, "
+              f"sweep {sweep_s:.3f} s); launches {launches} by form {forms}; "
+              f"peak device memory {peak} bytes; dense frontier "
+              f"{dense.iterations} rounds {dense_s:.3f} s", flush=True)
+        require(res.frontier is not None and not res.spilled,
+                f"{label}: auto mode must take the sparse push at scale "
+                f"{SCALE} without a spill")
+        rows = launches["fused_rows_popcount"]
+        if label == "bf":
+            require(rows >= 1 and forms.get("rows/and2") == rows
+                    and sum(launches.values()) == rows,
+                    f"the Bloom sweep must launch fused_rows_popcount (AND2) "
+                    f"and nothing else: {launches} {forms}")
+        else:
+            require(sum(launches.values()) == 0,
+                    f"the exact sweep launched kernels: {launches}")
+        require(torch.equal(dense.support, res.support),
+                f"{label}: dense-frontier supports {dense.support.tolist()} "
+                f"differ from the sparse {res.support.tolist()}")
+        agree = torch.cumprod((dense.order == res.order).to(torch.int64),
+                              1).bool()
+        require(torch.equal(dense.conductance[agree], res.conductance[agree]),
+                f"{label}: conductance profiles differ where orders agree")
+        found = res.best_size.cpu().numpy() > 0
+        require(found.any() and np.array_equal(np.isfinite(phi), found)
+                and (phi[found] >= 0).all(),
+                f"{label}: best conductances {phi} must be finite and "
+                "non-negative exactly where a cluster was found (an isolated "
+                "seed finds none), for at least one seed")
+        if label == "exact":
+            host = [host_conductance(np, indptr, indices, deg, g.m,
+                                     res.members(i))
+                    for i in np.flatnonzero(found)]
+            require(np.allclose(phi[found], host, rtol=1e-5),
+                    f"exact best conductance {phi} vs host recount {host}")
+            print(f"  best conductances equal a host recount of each "
+                  f"cluster's cut and volume; orders agree with the dense "
+                  f"frontier on {agree.sum(1).tolist()} prefixes", flush=True)
+        else:
+            print(f"  orders agree with the dense frontier on "
+                  f"{agree.sum(1).tolist()} prefixes (profiles equal there)",
+                  flush=True)
+        out[label] = dict(res=res, pass_s=pass_s, warm_s=warm_s,
+                          push_s=push_s, sweep_s=sweep_s, dense_s=dense_s,
+                          launches=launches, forms=forms, peak=peak,
+                          rounds=res.iterations)
+    bf, ex = (out[k]["res"].best_conductance.cpu().numpy()
+              for k in ("bf", "exact"))
+    print(f"  Bloom - exact best conductance per seed: "
+          f"{[round(float(x), 6) for x in bf - ex]}", flush=True)
+    out["seeds"] = seeds
+    return out
+
+
+def degree_batch(torch, np, LC, g):
+    """The phase-3e batch of SWEEP_SEEDS seeds, chosen by degree: the
+    TOP_HUBS vertices of highest degree (d > 1/eps, so the seed's unit
+    residual never pushes), the EDGE_PUSHERS of highest degree that still
+    push (d <= 1/eps: the longest CSR rows the push expands and the exact
+    sweep reads), then the seeds of largest support (stable ties) among up
+    to POOL_PER_BAND vertices of each degree band [2^b, 2^(b+1)), drawn
+    from default_rng(POOL_SEED). Returns (int32 seeds, group slices, pool
+    size)."""
+    deg = g.deg.cpu().numpy().astype(np.int64)
+    by_deg = np.argsort(-deg, kind="stable")
+    limit = int(round(1.0 / LC_EPS))
+    hubs = by_deg[:TOP_HUBS]
+    pushers = by_deg[deg[by_deg] <= limit][:EDGE_PUSHERS]
+    rng = np.random.default_rng(POOL_SEED)
+    pool = []
+    for b in range(limit.bit_length()):
+        band = np.flatnonzero((deg >= 1 << b) & (deg < 2 << b)
+                              & (deg <= limit))
+        pool.append(rng.choice(band, size=min(POOL_PER_BAND, band.size),
+                               replace=False))
+    pool = np.setdiff1d(np.concatenate(pool), pushers)
+    fr = LC.ppr_push_sparse(g, pool.astype(np.int32), LC_ALPHA, LC_EPS)
+    require(not fr.overflowed, "the pool's push spilled")
+    support = (fr.p > 0).sum(1).cpu().numpy()
+    rest = SWEEP_SEEDS - TOP_HUBS - EDGE_PUSHERS
+    best = pool[np.argsort(-support, kind="stable")[:rest]]
+    seeds = np.concatenate([hubs, pushers, best]).astype(np.int32)
+    groups = {"hubs": slice(0, TOP_HUBS),
+              "pushers": slice(TOP_HUBS, TOP_HUBS + EDGE_PUSHERS),
+              "pool": slice(TOP_HUBS + EDGE_PUSHERS, SWEEP_SEEDS)}
+    return seeds, groups, pool.size
+
+
+def expansion_slots(torch, LC, g, seeds, eps: float) -> tuple:
+    """The sparse push of ``seeds`` with the ragged expansion's slots per
+    round recorded (the degrees of the active entries, summed): (frontier,
+    slots per round)."""
+    deg = g.deg.to(torch.int64)
+    slots, expand = [], LC.row_elements
+
+    def counted(graph, rows, *args):
+        slots.append(int(deg[rows].sum()))
+        return expand(graph, rows, *args)
+    LC.row_elements = counted
+    try:
+        fr = LC.ppr_push_sparse(g, seeds, LC_ALPHA, eps)
+    finally:
+        LC.row_elements = expand
+    return fr, slots
+
+
+def spread(x) -> str:
+    """min/median/max of integers (the upper median of an even count)."""
+    v = sorted(int(i) for i in x)
+    return f"{v[0]}/{v[len(v) // 2]}/{v[-1]}" if v else "-"
+
+
+def batch_pass(torch, np, kernels, g, s, label: str, seeds, groups,
+               eps: float, **kw):
+    """``local_cluster`` of the degree-chosen batch on session ``s``, its
+    launch counts zeroed just before and read just after: the Bloom sweep
+    must launch ``fused_rows_popcount`` (AND2) and nothing else, the exact
+    one nothing; seeds of degree > 1/eps, whose unit residual cannot push,
+    must find nothing."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = s.local_cluster(seeds, LC_ALPHA, eps, **kw)
+    torch.cuda.synchronize()
+    pass_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    forms = dict(kernels.fused_expr.FORM_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    support = res.support.cpu().numpy()
+    best = res.best_size.cpu().numpy()
+    k = res.order.shape[1]
+    print(f"phase 3e: local_cluster, {label} session, the degree-chosen "
+          f"batch, eps={eps}: sparse={res.frontier is not None} spilled="
+          f"{res.spilled}; {res.iterations} push rounds; support "
+          + "; ".join(f"{name} {spread(support[v])}"
+                      for name, v in groups.items())
+          + f" ({int((support == k).sum())} at the cap {k}, mean "
+          f"{support.mean():.1f}); best sizes {spread(best)}; pass "
+          f"{pass_s:.3f} s; launches {sum(launches.values())} by form "
+          f"{forms}; peak device memory {peak} bytes", flush=True)
+    require(res.frontier is not None and not res.spilled,
+            f"{label}: the degree-chosen batch must take the sparse push "
+            "without a spill")
+    rows = launches["fused_rows_popcount"]
+    if label == "bf":
+        require(rows >= 1 and forms.get("rows/and2") == rows
+                and sum(launches.values()) == rows,
+                f"the Bloom sweep must launch fused_rows_popcount (AND2) "
+                f"and nothing else: {launches} {forms}")
+    else:
+        require(sum(launches.values()) == 0,
+                f"the exact sweep launched kernels: {launches}")
+    quiet = g.deg.cpu().numpy()[seeds] > round(1.0 / eps)
+    require((support[quiet] == 0).all() and (best[quiet] == 0).all(),
+            f"{label}: seeds of degree > 1/eps cannot push, yet support "
+            f"{support[quiet].tolist()}")
+    return res
+
+
+def sweep_and2(torch, kernels, sess, order, what: str, flush, hold):
+    """The Bloom sweep's dense AND2 on the operands of sweep ``order``, as
+    launched (every row) and on the rows of real steps alone (a sentinel
+    step repeats row 0's operands), against its plain version; then timed
+    with L2 flushed and warm beside its bound."""
+    from repro_torch.core.algorithms import localcluster as LC
+    from repro_torch.kernels import program, ref
+
+    fe = kernels.fused_expr
+    nbr, prefix = LC.sweep_operands(sess.sketch, order)
+    real = (order.reshape(-1) < sess.graph.n).nonzero().squeeze(1)
+    prog = program.and_program(2)
+    call = lambda: fe.fused_rows_popcount([nbr, prefix], prog)
+    want = ref.fused_rows_popcount([nbr, prefix], prog)
+    got = call()
+    real_got = fe.fused_rows_popcount([nbr[real], prefix[real]], prog)
+    real_want = ref.fused_rows_popcount([nbr[real], prefix[real]], prog)
+    E, W = nbr.shape
+    require(torch.equal(got, want) and torch.equal(real_got, real_want)
+            and torch.equal(real_got, got[real]),
+            f"dense AND2 on {what}: {int((got != want).sum())} of {E} "
+            f"popcounts ({int((real_got != real_want).sum())} of "
+            f"{real.numel()} real rows) differ from the plain version")
+    nbytes = 2 * E * W * 4 + E * 4
+    bound, by = bound_ms(nbytes, E * W * 3)
+    ms, warm = time_ms(call, flush), time_ms(call, hold)
+    plain = time_ms(lambda: ref.fused_rows_popcount([nbr, prefix], prog),
+                    flush)
+    timed_at = (f"rows AND2, {what}: E={E} (= {order.shape[0]} x "
+                f"{order.shape[1]}), W={W}, {real.numel()} rows of real "
+                f"steps")
+    print(f"phase 3e: {timed_at} ({real.numel() / E:.1%}): kernel "
+          f"{ms:.4f} ms L2 flushed, {warm:.4f} ms warm (plain {plain:.4f} "
+          f"ms; bound {bound:.4f} ms by {by}, {nbytes} bytes, "
+          f"{bound / ms:.1%} / {bound / warm:.1%}); popcounts equal the "
+          f"plain version on every row and on the real rows alone",
+          flush=True)
+    return dict(ms=ms, warm_ms=warm, plain_ms=plain, bound_ms=bound,
+                bound_by=by, bytes=nbytes,
+                max_abs_err=int((got - want).abs().max()),
+                real_rows=int(real.numel()),
+                library_note=NO_LIBRARY["popcount"], timed_at=timed_at)
+
+
+def phase_degree_batch(torch, np, kernels, g, sess, sx) -> dict:
+    """Phase 3e: the degree-chosen batch of SWEEP_SEEDS seeds (see
+    :func:`degree_batch`) through ``local_cluster`` on the Bloom and the
+    exact sessions, with its push's expansion slots per round; a spill
+    forced by a small frontier cap; the same batch at eps = DEEP_EPS
+    through the sparse push (supports up to the sweep's cap, hub seeds
+    that push); and the dense AND2 on both Bloom sweeps' operands (E =
+    SWEEP_SEEDS x sweep_cap) against its plain version, timed with L2
+    flushed and warm beside its bound (the eps = LC_EPS sweep is the
+    ``[sweep]`` record)."""
+    from repro_torch.core.algorithms import localcluster as LC
+    from repro_torch.obs.metrics import REGISTRY
+
+    t0 = time.perf_counter()
+    seeds, groups, pool = degree_batch(torch, np, LC, g)
+    pick_s = time.perf_counter() - t0
+    deg = g.deg.cpu().numpy().astype(np.int64)
+    indptr, indices = g.indptr.cpu().numpy(), g.indices.cpu().numpy()
+    print(f"phase 3e: degree-chosen batch of {SWEEP_SEEDS} seeds (picked in "
+          f"{pick_s:.3f} s from a pool of {pool}): degrees min/median/max "
+          + "; ".join(f"{k} {spread(deg[seeds[v]])}" for k, v in
+                      groups.items()), flush=True)
+    runs = {}
+    for eps, kw in ((LC_EPS, {}), (DEEP_EPS, {"frontier_mode": "sparse"})):
+        fr, slots = expansion_slots(torch, LC, g, seeds, eps)
+        acl = 1.0 / (LC_ALPHA * eps)
+        print(f"phase 3e: sparse push of the batch, eps={eps}: "
+              f"{fr.iterations} rounds, expansion slots per round {slots} "
+              f"(sum {sum(slots)}, {sum(slots) / (SWEEP_SEEDS * acl):.2%} "
+              f"of the ACL bound {SWEEP_SEEDS} x 1/(alpha eps) = "
+              f"{SWEEP_SEEDS * acl:.0f}), frontier sizes "
+              f"{spread(fr.sizes())} of cap {fr.cap}", flush=True)
+        require(not fr.overflowed, f"the batch's push at eps={eps} spilled")
+        bf, ex = (batch_pass(torch, np, kernels, g, s, label, seeds, groups,
+                             eps, **kw)
+                  for label, s in (("bf", sess), ("exact", sx)))
+        require(torch.equal(bf.support, ex.support),
+                f"eps={eps}: the Bloom and exact sessions' pushes differ")
+        # the exact best conductance of the seeds with the longest rows
+        # swept and of the seed of largest support, recounted on the host
+        phi = ex.best_conductance.cpu().numpy()
+        pushing = np.flatnonzero(deg[seeds] <= round(1.0 / eps))
+        check = [int(i) for i in [*pushing[np.argsort(
+                     -deg[seeds[pushing]], kind="stable")[:4]],
+                     int(np.argmax(ex.support.cpu().numpy()))]
+                 if np.isfinite(phi[i])]
+        host = [host_conductance(np, indptr, indices, deg, g.m,
+                                 ex.members(i)) for i in check]
+        require(np.allclose(phi[check], host, rtol=1e-5),
+                f"exact best conductance {phi[check]} vs host {host}")
+        print(f"  exact best conductances of seeds {check} (degrees "
+              f"{deg[seeds[check]].tolist()}) equal a host recount",
+              flush=True)
+        runs[eps] = dict(fr=fr, bf=bf)
+
+    # a spill: the SPILL_SEEDS of largest frontier at LC_EPS, with a
+    # frontier cap below their frontier sizes, must fall back to the dense
+    # push
+    sizes = runs[LC_EPS]["fr"].sizes()
+    bf = runs[LC_EPS]["bf"]
+    top = np.argsort(-sizes, kind="stable")[:SPILL_SEEDS]
+    require(sizes[top].min() >= 3, f"frontiers {sizes[top]} too small to "
+            "spill")
+    # its pow2 bucket stays below every one of those frontier sizes
+    small = int(sizes[top].min()) // 2
+    at = torch.as_tensor(top, device=bf.support.device)
+    spills = REGISTRY.counter("ppr.spill").value
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    sp = sess.local_cluster(seeds[top], LC_ALPHA, LC_EPS, frontier_cap=small)
+    torch.cuda.synchronize()
+    spill_s = time.perf_counter() - t0
+    spill_launches = kernels.launch_counts()["fused_rows_popcount"]
+    print(f"phase 3e: spill: {SPILL_SEEDS} seeds of frontier sizes "
+          f"{sizes[top].tolist()} with frontier_cap={small}: spilled="
+          f"{sp.spilled}, ppr.spill "
+          f"+{REGISTRY.counter('ppr.spill').value - spills}, dense push "
+          f"{sp.iterations} rounds, {spill_s:.3f} s, support "
+          f"{sp.support.tolist()}, {spill_launches} AND2 launch", flush=True)
+    require(sp.spilled and sp.frontier is None
+            and REGISTRY.counter("ppr.spill").value == spills + 1
+            and spill_launches >= 1,
+            "a frontier cap below the support must spill to the dense push")
+    require(torch.equal(sp.support, bf.support[at]),
+            f"spilled supports {sp.support.tolist()} differ from the sparse "
+            f"push's {bf.support[at].tolist()}")
+
+    flush, hold = make_flush(torch), make_hold(torch)
+    timing = sweep_and2(torch, kernels, sess, bf.order,
+                        f"the sweep of the {SWEEP_SEEDS}-seed degree-chosen "
+                        f"batch on the scale-{SCALE} Bloom session", flush,
+                        hold)
+    deep = sweep_and2(torch, kernels, sess, runs[DEEP_EPS]["bf"].order,
+                      f"the same batch's sweep at eps={DEEP_EPS}", flush,
+                      hold)
+    timing.update(deep_ms=deep["ms"], deep_warm_ms=deep["warm_ms"],
+                  deep_real_rows=deep["real_rows"])
+    del flush
+    torch.cuda.empty_cache()
+    return {"fused_rows_popcount[sweep]": timing}
+
+
 def phase_breakdown(torch, TE, sketches, g, sess, warm_pass_s, build_s,
-                    mh_sessions, mh_path, clique_s):
+                    mh_sessions, mh_path, clique_s, sx, exact_s, lc):
     """Phase 4: where the time goes. A warm Bloom pass (TC + LCC), a Bloom
-    sketch build, warm k-Hash and 1-Hash-naive passes (TC) and the
-    4-clique pass run under torch.profiler; device busy time is the sum of
-    their kernels' device time, and the idle share is taken against the
-    unprofiled wall time of phases 3/3b/3c."""
+    sketch build, warm k-Hash and 1-Hash-naive passes (TC), the 4-clique
+    pass, the exact per-edge pass and a warm 8-seed Bloom
+    ``local_cluster`` run under torch.profiler; device busy time is the
+    sum of their kernels' device time, and the idle share is taken against
+    the unprofiled wall time of phases 3/3b/3c/3e."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1293,7 +1815,17 @@ def phase_breakdown(torch, TE, sketches, g, sess, warm_pass_s, build_s,
     clique_busy, _ = run(f"4-clique pass (scale {SCALE})",
                          lambda: float(sess.four_clique_count()), clique_s,
                          top=14)
-    return pass_busy, build_busy, mh_busy, clique_busy
+    exact_busy, _ = run(f"exact per-edge pass (scale {SCALE})",
+                        lambda: TE.MiningSession(g, None, sx.plan)
+                        .edge_cardinalities(), exact_s, top=10)
+    lc_busy, lc_kernels = run(
+        f"warm {LC_SEEDS}-seed Bloom local_cluster (scale {SCALE})",
+        lambda: sess.local_cluster(lc["seeds"], LC_ALPHA, LC_EPS),
+        lc["bf"]["warm_s"], top=10)
+    tile = [e for e in lc_kernels if "tile_popcount_kernel" in e.key]
+    require(sum(e.count for e in tile) > 0, "the local_cluster profile "
+            "shows no launch of the dense AND2 kernel")
+    return pass_busy, build_busy, mh_busy, clique_busy, exact_busy, lc_busy
 
 
 def phase_reference(torch, np, TE, TG, sketches):
@@ -1328,6 +1860,41 @@ def phase_reference(torch, np, TE, TG, sketches):
     print(f"phase 5: scale 12 TC={tc:.6g} numpy={tc_ref:.6g} exact={exact:.0f} "
           f"(estimate rel err {abs(tc - exact) / exact:.4f})", flush=True)
     return g, exact
+
+
+def phase_reference_exact(torch, np, TE, g, exact: float):
+    """Phase 5: the exact baseline at scale 12 — ``exact_triangle_count``
+    equal to trace(A³)/6, and the exact session's Adamic–Adar and
+    Resource-Allocation equal to numpy sums over np.intersect1d on
+    sampled pairs (rtol 1e-5)."""
+    from repro_torch.core import exact as X
+
+    tc = int(X.exact_triangle_count(g))
+    require(tc == round(exact), f"exact_triangle_count {tc} vs trace {exact}")
+    indptr, indices = g.indptr.cpu().numpy(), g.indices.cpu().numpy()
+    deg = g.deg.cpu().numpy().astype(np.float64)
+    rng = np.random.default_rng(0)
+    e = g.edges.cpu().numpy()
+    hubs = np.argsort(-deg, kind="stable")[:8]
+    pairs = np.concatenate([e[rng.choice(e.shape[0], 1500, replace=False)],
+                            rng.integers(0, g.n, (400, 2)),
+                            np.stack([hubs, np.roll(hubs, 1)], 1)]
+                           ).astype(np.int32)
+    sx = TE.session(g, None, device="cuda")
+    for measure, weight in (
+            ("adamic_adar",
+             lambda d: 1.0 / np.maximum(np.log(np.maximum(d, 2.0)), 1e-6)),
+            ("resource_alloc", lambda d: 1.0 / np.maximum(d, 1.0))):
+        want = np.array([weight(deg[np.intersect1d(
+            indices[indptr[u]:indptr[u + 1]],
+            indices[indptr[v]:indptr[v + 1]])]).sum() for u, v in pairs])
+        got = sx.similarity(torch.from_numpy(pairs).cuda(), measure)
+        require(np.allclose(got.cpu().numpy(), want, rtol=1e-5, atol=0),
+                f"scale-12 exact {measure} differs from numpy")
+    print(f"phase 5: scale 12 exact_triangle_count {tc} = trace(A^3)/6; "
+          f"exact Adamic-Adar and Resource-Allocation on {pairs.shape[0]} "
+          f"sampled pairs (hub pairs included) equal numpy (rtol 1e-5)",
+          flush=True)
 
 
 _GOLDEN = 0x9E3779B9
@@ -1564,12 +2131,20 @@ def main() -> None:
                                     mh_sessions["kh"]))
     clq = phase_cliques(torch, np, TE, TG, kernels, g, sess)
     timing.update(clq["timing"])
+    t_3e = time.perf_counter()
+    sx, xp = phase_exact(torch, np, TE, kernels, g, {
+        "bf": main_path["tc"],
+        **{label: r["tc"] for label, r in mh_path.items()}})
+    lc = phase_local_cluster(torch, np, kernels, g, sess, sx)
+    timing.update(phase_degree_batch(torch, np, kernels, g, sess, sx))
+    print(f"phase 3e: {time.perf_counter() - t_3e:.1f} s in all", flush=True)
     phase_breakdown(torch, TE, sketches, g, sess, main_path["warm_pass_s"],
                     main_path["build_s"], mh_sessions, mh_path,
-                    clq["four"]["s"])
-    del g, sess, mh_sessions
+                    clq["four"]["s"], sx, xp["pass_s"], lc)
+    del g, sess, mh_sessions, sx
     torch.cuda.empty_cache()
     g12, exact = phase_reference(torch, np, TE, TG, sketches)
+    phase_reference_exact(torch, np, TE, g12, exact)
     phase_reference_minhash(torch, np, TE, g12, exact)
     phase_reference_cliques(torch, np, TE, g12)
 
@@ -1584,12 +2159,19 @@ def main() -> None:
           f"{clq['and3']}; 5-cliques (scale {CLIQUE5_SCALE}) pass "
           f"{clq['five']['s']:.3f} s AND4 launches {clq['and4']}; "
           f"flash_attention launches: {attn_launches} wgmma_bf16 (prefill), "
-          f"{fp32_launches} fma_fp32 (float32 path)"
+          f"{fp32_launches} fma_fp32 (float32 path); exact per-edge pass "
+          f"{xp['pass_s']:.3f} s, TC {xp['tc']} (Bloom rel err "
+          f"{xp['rel_err']['bf']:+.6f}); local_cluster ({LC_SEEDS} seeds) Bloom "
+          f"{lc['bf']['pass_s']:.3f} s, "
+          f"{lc['bf']['launches']['fused_rows_popcount']} dense AND2 "
+          f"launches, exact {lc['exact']['pass_s']:.3f} s"
           + f"; total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # each row: the kernel's launches on the paths that run it, each path
     # counted from zero (row 1: the Bloom TC, 4-clique and 5-clique paths;
-    # rows 3-6 and the AND4 entry: their form's launches on those paths);
+    # rows 2-3 and ``[sweep]``: the 8-seed Bloom local_cluster of phase
+    # 3e, whose sweep launches the dense AND2; rows 4-6 and the AND4
+    # entry: their form's launches on those paths);
     # rows 1-5 are timed at a TC pass chunk, row 6 and the AND4 entry at
     # the first launch of their clique pass (``timed_at``), which runs the
     # segmented kernel (``kernel``; ``gather_ms`` and ``bound_ms_tuples``
@@ -1601,7 +2183,10 @@ def main() -> None:
     # the rows kernel, on the same pairs); the ``[... chunk]`` rows are the
     # AND2 gather on two real chunks of the Bloom TC pass (phase 3d: ``ms``
     # with L2 flushed, ``warm_ms`` without, ``khash_gather_*`` the k-Hash
-    # gather on the same pairs), with the Bloom TC path's AND2 launches
+    # gather on the same pairs), with the Bloom TC path's AND2 launches;
+    # ``[sweep]`` is the dense AND2 on the operands of the degree-chosen
+    # 128-seed batch's sweep (phase 3e, flushed and ``warm_ms``;
+    # ``real_rows`` of its rows are real sweep steps)
     fused_src = "src/repro_torch/kernels/csrc/fused_expr.cu"
     mh_src = "src/repro_torch/kernels/csrc/mh_intersect.cu"
     mh_forms = {label: r["forms"] for label, r in mh_path.items()}
@@ -1621,13 +2206,13 @@ def main() -> None:
          "src/repro/kernels/fused_expr.py:79", gather),
         ("fused_rows_popcount", fused_src,
          "src/repro/kernels/fused_expr.py:129",
-         main_path["launches"]["fused_rows_popcount"]),
+         lc["bf"]["launches"]["fused_rows_popcount"]),
         ("bf_intersect_pairs", fused_src,
          "src/repro/kernels/bf_intersect.py:66",
-         main_path["forms"].get("rows/and2", 0)),
+         lc["bf"]["forms"].get("rows/and2", 0)),
         ("bf_intersect3_pairs", fused_src,
          "src/repro/kernels/bf_intersect.py:98",
-         main_path["forms"].get("rows/and3", 0)),
+         lc["bf"]["forms"].get("rows/and3", 0)),
         ("bf_edge_intersect", fused_src,
          "src/repro/kernels/bf_intersect.py:168",
          main_path["forms"].get("gather/and2", 0)),
@@ -1656,6 +2241,9 @@ def main() -> None:
         ("fused_gather_popcount[median chunk]", fused_src,
          "src/repro/kernels/fused_expr.py:79",
          main_path["forms"].get("gather/and2", 0)),
+        ("fused_rows_popcount[sweep]", fused_src,
+         "src/repro/kernels/fused_expr.py:129",
+         lc["bf"]["forms"].get("rows/and2", 0)),
     ]
     records = [{
         "name": name, "route": "cuda", "source": source,
@@ -1670,7 +2258,8 @@ def main() -> None:
         "timed_at": timing[name]["timed_at"],
         **{key: value for key, value in timing[name].items()
            if key in ("kernel", "gather_ms", "bound_ms_tuples",
-                      "old_route_ms", "warm_ms", "khash_gather_ms",
+                      "old_route_ms", "warm_ms", "real_rows", "deep_ms",
+                      "deep_warm_ms", "deep_real_rows", "khash_gather_ms",
                       "khash_gather_warm_ms") or key.startswith("clique_")},
     } for name, source, replaces, launches in rows]
     print(smi)

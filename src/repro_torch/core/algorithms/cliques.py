@@ -12,10 +12,11 @@ N_u and against each other), then
     cc5 = (1/5) Σ_{4-cliques u<v<w<x} |N_u ∩ N_v ∩ N_w ∩ N_x|.
 
 Intersections: ``exact`` walks the CSR row of least degree and looks the
-others up; ``bf`` is popcount(AND of the Bloom rows), Eq. 2, over
-segments that share their first k-1 rows (the segmented kernel on CUDA,
-which reads them once per segment); ``kh`` (4-cliques only) is
-the reference's 3-way aligned-match inclusion–exclusion. The closing tests
+others up (``core.exact.common_count``); ``bf`` is popcount(AND of the
+Bloom rows), Eq. 2, over segments that share their first k-1 rows (the
+segmented kernel on CUDA, which reads them once per segment); ``kh``
+(4-cliques only) is the reference's 3-way aligned-match
+inclusion–exclusion. The closing tests
 use Bloom membership for a ``bf`` sketch (unless ``exact_closing_test``)
 and an exact edge lookup otherwise.
 
@@ -51,6 +52,7 @@ import torch
 from ... import engine as eng
 from ...obs.metrics import REGISTRY
 from .. import estimators as est
+from ..exact import common_count, key_member, pieces
 from ..graph import Graph, edge_keys, has_edge
 from ..sketches import SketchSet, bloom_positions, bloom_test
 
@@ -60,38 +62,6 @@ _CHUNK_CANDIDATES = 1 << 25
 
 #: tuples per popcount launch (bounds the estimators' temporaries)
 _LAUNCH_TUPLES = 1 << 22
-
-
-def _pieces(counts: torch.Tensor, cap: int
-            ) -> Iterator[Tuple[int, int, torch.Tensor, torch.Tensor]]:
-    """Expand items of ``counts[i]`` slots each, in runs of whole items.
-
-    Runs hold at most ``cap`` + max(counts) slots. For each run, yields
-    its items i0 <= i < i1 (host ints) and (item, rank) int64 per slot:
-    the slot's item index and its rank within the item.
-    """
-    if counts.numel() == 0:
-        return
-    dev = counts.device
-    cum = torch.cumsum(counts, 0)
-    total = int(cum[-1])
-    if total == 0:
-        return
-    marks = torch.arange(1, -(-total // cap), device=dev,
-                         dtype=torch.int64) * cap
-    bounds = torch.cat([torch.searchsorted(cum, marks, right=True),
-                        torch.tensor([counts.numel()], device=dev)])
-    ends = torch.where(bounds > 0, cum[(bounds - 1).clamp(min=0)], 0)
-    start = cum - counts
-    i0, base = 0, 0
-    for i1, end in zip(bounds.tolist(), ends.tolist()):
-        if end > base:
-            item = torch.repeat_interleave(
-                torch.arange(i0, i1, device=dev), counts[i0:i1],
-                output_size=end - base)
-            rank = torch.arange(base, end, device=dev) - start[item]
-            yield i0, i1, item, rank
-        i0, base = i1, end
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,7 +120,7 @@ def _triangles(csr: _Csr, edges: torch.Tensor, cap: int, stats: dict):
     in one piece.
     """
     u, v = edges[:, 0].to(torch.int64), edges[:, 1].to(torch.int64)
-    for lo, hi, item, rank in _pieces(csr.up_count[v], cap):
+    for lo, hi, item, rank in pieces(csr.up_count[v], cap):
         ww = csr.neighbour(csr.up_first[v[item]] + rank)
         keep = torch.nonzero(csr.closes(u[item], ww)).squeeze(1)
         stats["clique_wedge_candidates"] += item.numel()
@@ -170,7 +140,7 @@ def _pairs(csr: _Csr, edge: torch.Tensor, w: torch.Tensor, cap: int,
     # survivors after each one on the same edge (edge is sorted)
     later = (torch.searchsorted(edge, edge, right=True) - 1
              - torch.arange(edge.numel(), device=edge.device))
-    for lo, hi, i, rank in _pieces(later, cap):
+    for lo, hi, i, rank in pieces(later, cap):
         x = w[i + 1 + rank]
         keep = torch.nonzero(csr.closes(w[i], x)).squeeze(1)
         stats["clique_pair_candidates"] += i.numel()
@@ -276,30 +246,8 @@ def closed_segments(graph: Graph, sketch: Optional[SketchSet] = None,
     edges = graph.edges if edges is None else edges
     stats = _stats("clique_wedge_candidates", "clique_triangles",
                    "clique_pair_candidates", "clique_quads")
-    pieces = _triangle_segments if k == 3 else _quad_segments
-    yield from pieces(csr, edges, _CHUNK_CANDIDATES, stats)
-
-
-def _common_count(csr: _Csr, tuples: torch.Tensor, cap: int
-                  ) -> torch.Tensor:
-    """Exact |N_t0 ∩ ... ∩ N_tk-1| per row of int64[T, k]: walk the row of
-    least degree, look each element up in the others -> int64[T]."""
-    deg = csr.graph.deg.to(torch.int64)
-    at = deg[tuples].argmin(1, keepdim=True)
-    pivot = tuples.gather(1, at)[:, 0]
-    # the other k - 1 columns (the pivot's own lookup always holds)
-    others = tuples[torch.arange(tuples.shape[1], device=tuples.device)
-                    != at].view(tuples.shape[0], tuples.shape[1] - 1)
-    out = torch.zeros(tuples.shape[0], dtype=torch.int64,
-                      device=tuples.device)
-    indptr = csr.graph.indptr.to(torch.int64)
-    for _, _, item, rank in _pieces(deg[pivot], cap):
-        z = csr.neighbour(indptr[pivot[item]] + rank)
-        ok = torch.ones_like(z, dtype=torch.bool)
-        for j in range(others.shape[1]):
-            ok &= has_edge(csr.keys, csr.graph.n, others[item, j], z)
-        out += torch.bincount(item[ok], minlength=tuples.shape[0])
-    return out
+    segments = _triangle_segments if k == 3 else _quad_segments
+    yield from segments(csr, edges, _CHUNK_CANDIDATES, stats)
 
 
 def _fold_segments(sketch: SketchSet, plan: eng.EnginePlan, segments,
@@ -374,8 +322,10 @@ def four_clique_count(graph: Graph, sketch: Optional[SketchSet] = None,
             return _khash_triple(graph, sketch, plan, t[:, 0], t[:, 1],
                                  t[:, 2])
     elif kind == "exact":
+        member = key_member(graph, csr.keys)
+
         def values(t):
-            return _common_count(csr, t, _CHUNK_CANDIDATES)
+            return common_count(graph, t, member, _CHUNK_CANDIDATES)
     edges = graph.edges
     stats = _stats("clique_wedge_candidates", "clique_triangles")
     total = torch.zeros((), dtype=torch.float64, device=graph.device)
@@ -407,9 +357,10 @@ def five_clique_count(graph: Graph, sketch: Optional[SketchSet] = None,
         raise ValueError(f"5-clique not supported for sketch kind {kind}")
     plan = eng.resolve_plan(plan, graph, sketch, kw)
     csr = _csr(graph, sketch, exact_closing_test)
+    member = key_member(graph, csr.keys)
 
     def values(t):
-        return _common_count(csr, t, _CHUNK_CANDIDATES)
+        return common_count(graph, t, member, _CHUNK_CANDIDATES)
     edges = graph.edges
     stats = _stats("clique_wedge_candidates", "clique_triangles",
                    "clique_pair_candidates", "clique_quads")

@@ -1,4 +1,4 @@
-"""Uniform |N_u ∩ N_v| providers over ProbGraph estimators.
+"""Uniform |N_u ∩ N_v| providers: exact or any ProbGraph estimator.
 
 ``make_pair_cardinality_fn(graph, sketch)`` returns a batched function
 pairs[P,2] -> float32[P]: the paper's "plug in PG routines in place of
@@ -7,7 +7,8 @@ exact set intersections" (Listing 6). Every sketch kind is ported: Bloom
 or "naive") and KMV. ``use_kernel`` routes the Bloom popcounts and the
 MinHash match counts through the CUDA kernels; the k-Hash and 1-Hash
 naive counts then read each pair's rows from the sketch by id. The exact
-baseline (``sketch=None``) needs ``core/exact.py`` and is not ported yet.
+baseline (``sketch=None``) counts over the CSR (``core/exact.py``) and
+returns the counts as float32.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import Callable, Optional
 import torch
 
 from . import estimators as est
+from . import exact
 from .graph import Graph
 from .sketches import SketchSet, onehash_values
 
@@ -29,8 +31,11 @@ def make_pair_cardinality_fn(graph: Graph, sketch: Optional[SketchSet] = None,
                              block_e: int = 8, block_w: int = 512) -> CardFn:
     """Build the batched pairs[P, 2] -> float32[P] cardinality provider."""
     if sketch is None:
-        raise NotImplementedError(
-            "exact intersections (sketch=None) are not ported yet")
+        member = exact.key_member(graph)
+
+        def exact_fn(pairs: torch.Tensor) -> torch.Tensor:
+            return exact.common_count(graph, pairs, member).to(torch.float32)
+        return exact_fn
     if sketch.kind == "bf":
         return _bloom_fn(graph, sketch, use_kernel, estimator, block_e,
                          block_w)

@@ -10,10 +10,10 @@
     ``segment_cardinality_ones`` — the same over tuples grouped by their
     first k-1 rows (the clique passes' form); ``wedge_triple_ones``
     / ``wedge_quad_ones`` — the same over the reference's wedge grids.
-  * ``session`` — build the sketch once (Bloom, k-Hash, 1-Hash or KMV)
-    and run TC, LCC, 4- and 5-clique counts, Jarvis–Patrick clustering
-    and the cardinality similarities over it (TC, LCC and clustering
-    share one per-edge cardinality pass).
+  * ``session`` — build the sketch once (Bloom, k-Hash, 1-Hash or KMV;
+    or none, the exact baseline) and run TC, LCC, 4- and 5-clique counts,
+    Jarvis–Patrick clustering, the similarities and local clustering over
+    it (TC, LCC and clustering share one per-edge cardinality pass).
 
 Edge sharding (``shard_edges=True``), the streaming refresh
 (``DeviceCarry``) and the footprints of the serving tier come with later
@@ -254,6 +254,34 @@ class MiningSession:
         return pair_similarity(self.graph, pairs, measure, self.sketch,
                                plan=self.plan)
 
+    def local_cluster(self, seeds, alpha: float = 0.15, eps: float = 1e-4,
+                      **kw):
+        """Seed-centric local clustering (PPR push + sketch-gated sweep).
+
+        Args:
+          seeds: int[S] (or scalar) seed vertex ids; the whole batch runs
+                 as one batched push + sweep.
+          alpha: PPR teleport probability.
+          eps:   push tolerance (residual threshold per unit degree).
+          **kw:  forwarded to
+                 :func:`repro_torch.core.algorithms.localcluster.local_cluster`
+                 (e.g. ``max_iters=``, or plan overrides such as
+                 ``frontier_mode=`` / ``frontier_cap=``).
+
+        Returns:
+          A :class:`~repro_torch.core.algorithms.localcluster.
+          LocalClusterResult`. A Bloom session's sweep counts its cut
+          increments with the dense AND2 popcount (the CUDA kernel when
+          ``plan.use_kernel``); any other session counts them exactly.
+        """
+        from ..core.algorithms.localcluster import local_cluster
+        with trace.span("engine.local_cluster", alpha=float(alpha),
+                        eps=float(eps)) as sp:
+            res = local_cluster(self.graph, seeds, alpha, eps, self.sketch,
+                                plan=self.plan, **kw)
+            sp.set(sparse=res.frontier is not None, spilled=bool(res.spilled))
+            return res
+
     def edge_similarity(self, measure: str = "jaccard") -> torch.Tensor:
         """Similarity scores over graph.edges from the cached shared pass."""
         from ..core.algorithms.similarity import similarity_from_cardinalities
@@ -284,8 +312,8 @@ def session(graph: Graph, sketch: Optional[SketchSet] | str = "bf",
     The graph (and a prebuilt sketch) move to ``device`` first; with no
     CUDA device, the default ``"cuda"`` raises instead of running on the
     CPU. ``sketch`` may be a prebuilt SketchSet or a kind string ("bf" |
-    "kh" | "1h" | "kmv") to build here; ``None`` (the exact baseline) is
-    not ported yet and raises on the first query.
+    "kh" | "1h" | "kmv") to build here; ``None`` runs the exact baseline
+    (``core/exact.py``: exact counts over the CSR, as float32).
     """
     dev = resolve_device(device)
     graph = graph.to(dev)

@@ -117,15 +117,18 @@ def test_estimators_and_layouts(sessions, estimator, degree_order):
 
 
 def test_mine_session_reproduces_reference(sessions):
-    """launch/mine.py mine_session(["tc", "lcc"]) gives the same numbers."""
+    """launch/mine.py mine_session(["tc", "lcc", "localcluster"]) gives the
+    same numbers (the launcher's mean best conductance of its 8 seeds
+    included); an unknown algo exits."""
     rg, tg, _, _ = sessions
-    ref = RM.mine_session(rg, ["tc", "lcc"], storage_budget=0.25)
-    got = TM.mine_session(tg, ["tc", "lcc"], storage_budget=0.25, device=CPU)
+    algos = ["tc", "lcc", "localcluster"]
+    ref = RM.mine_session(rg, algos, storage_budget=0.25)
+    got = TM.mine_session(tg, algos, storage_budget=0.25, device=CPU)
     assert got["build"][0] == ref["build"][0]
-    for algo in ("tc", "lcc"):
+    for algo in algos:
         np.testing.assert_allclose(got[algo][0], ref[algo][0], rtol=1e-5)
     with pytest.raises(SystemExit):
-        TM.mine_session(tg, ["localcluster"], device=CPU)
+        TM.mine_session(tg, ["bogus"], device=CPU)
 
 
 def test_mine_cli_prints_session_json(capsys):
@@ -144,7 +147,8 @@ def test_mine_cli_prints_session_json(capsys):
 
 def test_spans_and_unported_paths(sessions):
     """engine.edge_cards is traced like the reference's; unported options
-    raise instead of running a different computation."""
+    raise instead of running a different computation; the exact session
+    (``sketch=None``) gives the reference's per-edge counts and TC."""
     _, tg, _, ts = sessions
     TTR.enable()
     TTR.clear()
@@ -157,8 +161,12 @@ def test_spans_and_unported_paths(sessions):
     assert "engine.edge_cards" in names
     with pytest.raises(NotImplementedError):
         TE.session(tg, "bf", device=CPU, shard_edges=True)
-    with pytest.raises(NotImplementedError):
-        TE.session(tg, None, device=CPU).edge_cardinalities()
+    rg = sessions[0]
+    exact = TE.session(tg, None, device=CPU)
+    ref = RE.session(rg, None)
+    assert np.array_equal(exact.edge_cardinalities().numpy(),
+                          np.asarray(ref.edge_cardinalities()))
+    assert float(exact.triangle_count()) == float(ref.triangle_count())
     with pytest.raises(TypeError):
         TE.session(tg, "bf", device=CPU, bogus=1)
     forked = ts.fork()

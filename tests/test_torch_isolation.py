@@ -56,10 +56,14 @@ def no_cuda(monkeypatch):
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
-    """session(), kronecker(), from_edge_array() and Graph.to() raise."""
+    """session() (the exact one too), kronecker(), from_edge_array(),
+    Graph.to() and the launcher (local clustering and the exact count
+    included) raise."""
     g = TG.kronecker(6, 4, seed=1, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TE.session(g, "bf")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TE.session(g, None)
     with pytest.raises(RuntimeError, match="cuda"):
         TG.kronecker(6, 4, seed=1)
     with pytest.raises(RuntimeError, match="cuda"):
@@ -69,6 +73,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     from repro_torch.launch import mine
     with pytest.raises(RuntimeError, match="cuda"):
         mine.main(["--scale", "6"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        mine.main(["--scale", "6", "--algos", "localcluster", "--exact"])
     assert TE.session(g, "bf", device="cpu").plan.use_kernel is False
 
 
@@ -83,6 +89,8 @@ def test_use_kernel_on_cpu_tensors_raises():
         sess.four_clique_count()
     with pytest.raises(ValueError, match="use_kernel=True needs CUDA"):
         sess.five_clique_count()
+    with pytest.raises(ValueError, match="use_kernel=True needs CUDA"):
+        sess.local_cluster([0, 1])
     ce = TX.compile_expr(TX.and_all(*TX.rows(2)), use_kernel=True)
     data = torch.zeros((3, 2), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):

@@ -621,3 +621,67 @@ def test_clique_exact_counts_on_the_card(cuda):
     assert float(cliques.four_clique_count(g)) == float(want)
     assert float(TE.session(g, None, device=cuda).four_clique_count()) == \
         float(want)
+
+
+def test_sweep_kernel_equals_plain_version(cuda):
+    """The Bloom sweep of local_cluster launches the dense AND2 kernel once
+    per sweep (sparse and dense frontiers) and equals the plain path: the
+    same popcounts on the sweep's real operands, and the same orders and
+    conductance profiles."""
+    from repro_torch.core.algorithms import localcluster as LC
+
+    g = TG.kronecker(10, 16, seed=1, device=cuda)
+    sess = TE.session(g, "bf", storage_budget=1.0, device=cuda)
+    seeds = torch.arange(0, g.n, 37, device=cuda)
+    for mode in ("sparse", "dense"):
+        fused_expr.reset_launch_counts()
+        got = sess.local_cluster(seeds, 0.15, 1e-4, frontier_mode=mode)
+        assert fused_expr.LAUNCHES["fused_rows_popcount"] == 1
+        assert fused_expr.FORM_LAUNCHES == {"rows/and2": 1}
+        # the plain path on the same push output
+        ppr = got.frontier if mode == "sparse" else got.ppr
+        order, phi, support = LC.sweep_cut(
+            g, ppr, sess.sketch, sess.plan.with_(use_kernel=False))
+        assert torch.equal(order, got.order)
+        assert torch.equal(phi, got.conductance)
+        assert torch.equal(support, got.support)
+    nbr, prefix = LC.sweep_operands(sess.sketch, got.order)
+    prog = program.and_program(2)
+    assert torch.equal(fused_expr.fused_rows_popcount([nbr, prefix], prog),
+                       ref.fused_rows_popcount([nbr, prefix], prog))
+
+
+def test_exact_session_equals_brute_force(cuda):
+    """At scale 10 on the card the exact session's per-edge counts equal
+    set intersections of the CSR rows, its TC and exact_triangle_count
+    equal trace(A³)/6, and Adamic–Adar / Resource-Allocation equal sums
+    over those intersections; the exact paths launch no kernel."""
+    import numpy as np
+
+    from repro_torch.core import exact
+
+    g = TG.kronecker(10, 16, seed=1, device=cuda)
+    fused_expr.reset_launch_counts()
+    sess = TE.session(g, None, device=cuda)
+    cards = sess.edge_cardinalities().cpu().numpy()
+    rows = [set(TG.neighbors_np(g, v).tolist()) for v in range(g.n)]
+    edges = g.edges.cpu().numpy()
+    assert cards.tolist() == [len(rows[u] & rows[v]) for u, v in edges]
+    a = torch.zeros((g.n, g.n), dtype=torch.float64, device=cuda)
+    a[g.edges[:, 0].long(), g.edges[:, 1].long()] = 1
+    a[g.edges[:, 1].long(), g.edges[:, 0].long()] = 1
+    tc = round(float(torch.trace(a @ a @ a)) / 6)
+    assert int(exact.exact_triangle_count(g)) == tc
+    assert float(sess.triangle_count()) == tc
+    deg = g.deg.cpu().numpy().astype(np.float64)
+    pairs = np.concatenate([edges[:500], np.random.default_rng(0).integers(
+        0, g.n, (200, 2))]).astype(np.int32)
+    common = [sorted(rows[u] & rows[v]) for u, v in pairs]
+    for measure, weight in (
+            ("adamic_adar",
+             lambda d: 1.0 / np.maximum(np.log(np.maximum(d, 2.0)), 1e-6)),
+            ("resource_alloc", lambda d: 1.0 / np.maximum(d, 1.0))):
+        want = [weight(deg[c]).sum() for c in common]
+        got = sess.similarity(torch.from_numpy(pairs).to(cuda), measure)
+        assert np.allclose(got.cpu().numpy(), want, rtol=1e-5, atol=0)
+    assert sum(fused_expr.LAUNCHES.values()) == 0

@@ -430,14 +430,25 @@ def test_similarities_match_reference(sessions, name):
                    jnp.asarray(dv.numpy()), measure))
 
 
-def test_unported_similarities_raise(sessions):
-    """adamic_adar / resource_alloc need code that is not ported: they
-    raise NotImplementedError; unknown measures raise ValueError."""
-    _, ts = sessions["bf"]
-    pairs = torch.tensor([[0, 1]], dtype=torch.int32)
+def test_unported_similarities_raise(graphs, sessions):
+    """adamic_adar / resource_alloc on the Bloom session match the
+    reference's (its float32 sums in another order: rtol 1e-6 plus their
+    error bound, (d_u - 1)·2⁻²⁴); on a k-Hash session they raise
+    ValueError, as in the reference; unknown measures raise ValueError."""
+    rs, ts = sessions["bf"]
+    rng = np.random.default_rng(3)
+    pairs = np.concatenate([np.asarray(rs.graph.edges)[:200],
+                            rng.integers(0, rs.graph.n, (100, 2))]
+                           ).astype(np.int32)
+    terms = ts.graph.deg[torch.from_numpy(pairs[:, 0]).long()].numpy()
+    rtol = 1e-6 + np.maximum(terms - 1, 0) * 2.0 ** -24
     for measure in ("adamic_adar", "resource_alloc"):
-        with pytest.raises(NotImplementedError):
-            ts.similarity(pairs, measure)
+        want = np.asarray(rs.similarity(jnp.asarray(pairs), measure))
+        got = ts.similarity(torch.from_numpy(pairs), measure).numpy()
+        assert (np.abs(got - want) <= rtol * np.abs(want)).all()
+        with pytest.raises(ValueError, match="exact or BF"):
+            sessions["kh"][1].similarity(torch.from_numpy(pairs), measure)
+    pairs = torch.tensor([[0, 1]], dtype=torch.int32)
     with pytest.raises(ValueError):
         ts.similarity(pairs, "bogus")
     with pytest.raises(ValueError):
