@@ -87,6 +87,23 @@ Phases, each printed as it runs:
      Bloom sweeps' operands (E = 65,536) against its plain version on
      every row and on the rows of real steps alone, timed L2 flushed and
      warm beside its bound.
+  3f. The streaming serving path at scale 21: the phase-3 edges split as
+     ``launch/stream.py`` splits them (``default_rng(2)`` permutation, 30%
+     withheld, 96 arrival chunks); a Bloom ``StreamSession`` (s = 1.0,
+     strict policy) behind a ``BatchedQueryServer(max_batch=5,
+     max_wait_s=0.25)`` replays the first 2 chunks (the host's set
+     algebra takes tens of seconds a delta at this size), each a delta
+     (10% as many deletions as inserts) and the launcher's five queries;
+     per batch the apply_delta wall time split by its spans, cards
+     recomputed/carried, rows rebuilt, bytes uploaded (required below
+     bytes_init / 8), the flush time and the launches of delta and flush
+     by form (counts zeroed before each, read after; both must launch the
+     AND2 gather, the flush also the dense AND2). After each batch the
+     stream is held to a from-scratch session on ``from_edge_array`` (TC
+     float32 bits, similarity, membership, local cluster, sketch rows,
+     device CSR). The last batch runs under torch.profiler (device busy,
+     idle share, top kernels). Then a k-Hash stream (k = 22) of 1 batch,
+     held the same way (rows equal to a fresh ``build_khash``).
   4. Where the time goes: a warm Bloom pass (and the [T, k] gather
      kernel's time per launch in it), a Bloom sketch build, warm k-Hash
      and 1-Hash-naive passes, the scale-21 4-clique pass, the exact
@@ -291,6 +308,9 @@ def phase_kernels(torch, setexpr, fused_expr, ref, flush):
     # tile edges, every vector width and column blocks
     cases += [(W, T) for W in (1, 3, 4, 30, 31, 33, 128, 129)
               for T in (1, 31, 32, 33, 65, 4099)]
+    # the scale-21 Bloom stream's width (phase 3f): its 64-pair batch and
+    # a refresh launch
+    cases += [(24, T) for T in (1, 64, 65_536)]
     checked = 0
     # max |kernel - plain| per form and program
     err = {f"{form}/{name}": 0 for form in ("gather", "rows")
@@ -421,6 +441,8 @@ def phase_minhash_kernels(torch, mh_intersect, ref, flush):
     cases = [(k, e) for k in (1, 4, 7, 24, 28, 31, 32, 33)
              for e in (0, 1, 999, 65_537, 1_000_003)]
     cases += [(k, e) for k in (128, 256) for e in (0, 1, 999, 70_001)]
+    # the scale-21 k-Hash stream's k (phase 3f): its pair batch, a refresh
+    cases += [(22, e) for e in (64, 65_536)]
     checked = 0
 
     def check(name, got, want, what):
@@ -1760,6 +1782,224 @@ def phase_degree_batch(torch, np, kernels, g, sess, sx) -> dict:
     return {"fused_rows_popcount[sweep]": timing}
 
 
+#: phase 3f: the launcher's split of the phase-3 edges (``stream_frac``
+#: 0.3, ``default_rng(seed + 1)``) into 96 arrival chunks; Bloom batches
+#: (the last one also profiled) and k-Hash batches. The host's set algebra
+#: takes 20-40 s a delta at this size on an H100 machine's host, so the
+#: stream replays 2 + 2 of the 96 chunks
+STREAM_SEED, STREAM_FRAC, STREAM_CHUNKS = 1, 0.3, 96
+STREAM_BATCHES, STREAM_KH_BATCHES = 2, 2
+#: the spans a delta's wall time splits into (name printed -> span names)
+STREAM_SPANS = {"host set algebra": ("graph.host_delta",),
+                "host isin": ("graph.host_isin",),
+                "host union1d": ("graph.host_union",),
+                "host directed keys": ("graph.host_directed",),
+                "device splice + CSR": ("graph.device_delta",),
+                "sketch insert": ("sketch.insert",),
+                "rebuild": ("sketch.rebuild",),
+                "recompute set": ("stream.recompute_set",),
+                "refresh": ("engine.refresh",)}
+
+
+def stream_launches(kernels) -> dict:
+    """Nonzero launches since the last reset, by kernel and by form (both
+    forms' tables)."""
+    counts = {**kernels.launch_counts(),
+              **kernels.fused_expr.FORM_LAUNCHES,
+              **kernels.mh_intersect.FORM_LAUNCHES}
+    return {key: value for key, value in counts.items() if value}
+
+
+def stream_batch(torch, np, kernels, trace, LS, st, server, chunks, b: int,
+                 kind: str, profiler=None):
+    """One batch of the replay: its delta (spans aggregated), then the
+    launcher's five queries, answered by the server's auto-flush; launch
+    counts zeroed before each part and read after it."""
+    rng = np.random.default_rng([STREAM_SEED + 2, b])
+    dels = LS.batch_deletes(st, rng, len(chunks[b]), 0.1)
+    trace.clear()
+    torch.cuda.synchronize()
+    if profiler is not None:
+        profiler.start()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    info = st.apply_delta(chunks[b], dels)
+    torch.cuda.synchronize()
+    delta_s = time.perf_counter() - t0
+    delta_launches = stream_launches(kernels)
+    spans = trace.aggregate()
+    split = {label: sum(spans.get(name, {}).get("total_s", 0.0)
+                        for name in names)
+             for label, names in STREAM_SPANS.items()}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    q = LS.submit_queries(server, rng, st.dyn.n, 64)
+    answers = server.flush()
+    torch.cuda.synchronize()
+    flush_s = time.perf_counter() - t0
+    if profiler is not None:
+        profiler.stop()
+    flush_launches = stream_launches(kernels)
+    require(len(answers) == 5, f"stream batch {b}: {len(answers)} answers")
+    bytes_init = st.dyn.traffic.bytes_init
+    print(f"phase 3f: {kind} batch {b}: +{info['inserted']} "
+          f"-{info['deleted']} touched {info['touched']} m={st.dyn.m}; "
+          f"apply_delta {delta_s:.3f} s = "
+          + ", ".join(f"{label} {sec:.3f}" for label, sec in split.items())
+          + f" s; cards recomputed {info['cards_recomputed']} / carried "
+          f"{info['cards_carried']}; rows rebuilt {info['rows_rebuilt_now']}"
+          f"; uploaded {info['bytes_uploaded']} of bytes_init {bytes_init} "
+          f"({info['bytes_uploaded'] / bytes_init:.4%}); delta launches "
+          f"{delta_launches}; flush {flush_s:.3f} s, launches "
+          f"{flush_launches}", flush=True)
+    require(info["bytes_uploaded"] < bytes_init / 8,
+            f"stream batch {b} uploaded {info['bytes_uploaded']} bytes, not "
+            f"below bytes_init / 8 = {bytes_init / 8}")
+    return dict(info=info, q=q, answers=answers, delta_s=delta_s,
+                flush_s=flush_s, split=split, delta_launches=delta_launches,
+                flush_launches=flush_launches)
+
+
+def verify_stream(torch, np, LS, st, row, b: int, kind: str):
+    """The stream against a from-scratch port session on
+    ``from_edge_array(n, dyn.edge_array())`` with a fresh sketch, run on the
+    plain PyTorch path: TC float32 bits, similarity, membership, local
+    cluster, sketch rows, device CSR; and the served answers against the
+    stream's own. Equal answers hold the kernels the stream launched to
+    their plain versions on its own rows and ids (launches not counted)."""
+    t0 = time.perf_counter()
+    q = row["q"]
+    check = LS.verify_against_static(st, q["pairs"], q["lc_seed"],
+                                     q["membership"])
+    served = row["answers"]
+    sim = served[q["rids"]["similarity"]].value
+    tc = served[q["rids"]["tc"]].value
+    same_served = (np.array_equal(sim, st.similarity(q["pairs"])
+                                  .cpu().numpy())
+                   and tc == float(st.triangle_count()))
+    print(f"phase 3f: {kind} batch {b} against a static session "
+          f"({time.perf_counter() - t0:.1f} s): {check}; served answers "
+          f"equal the stream's: {same_served}", flush=True)
+    require(check["exact_match"] and check["csr_equal"]
+            and check["sketch_equal"] and check.get("membership_equal", True)
+            and same_served,
+            f"{kind} stream batch {b} differs from the static session: "
+            f"{check}")
+
+
+def phase_stream(torch, np, kernels, g):
+    """Phase 3f: the streaming serving path at scale 21 (the phase-3
+    edges): a Bloom ``StreamSession`` behind a ``BatchedQueryServer``
+    replays deltas and the launcher's queries, checked against static
+    sessions after its first and last batch; then a k-Hash stream."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import stream as LS
+    from repro_torch.obs import trace
+    from repro_torch.stream import (BatchedQueryServer, DynamicGraph,
+                                    StreamSession)
+
+    t_phase = time.perf_counter()
+    edges = g.edges.cpu().numpy().astype(np.int64)
+    initial, arrivals = LS.split_stream(edges, STREAM_FRAC, STREAM_SEED)
+    del edges
+    chunks = np.array_split(arrivals, STREAM_CHUNKS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st = StreamSession(DynamicGraph.from_edges(g.n, initial, device="cuda"),
+                       "bf", storage_budget=1.0)
+    server = BatchedQueryServer(st, max_batch=5, max_wait_s=0.25)
+    st.session.edge_cardinalities()
+    torch.cuda.synchronize()
+    open_s = time.perf_counter() - t0
+    print(f"phase 3f: stream of kronecker({SCALE}): initial m={st.dyn.m} "
+          f"arrivals {arrivals.shape[0]} in {STREAM_CHUNKS} chunks of "
+          f"~{chunks[0].shape[0]}; Bloom words={st.maintainer.words}; "
+          f"bytes_init {st.dyn.traffic.bytes_init}; open (graph, mirror, "
+          f"sketch, first pass) {open_s:.1f} s; plan use_kernel="
+          f"{st.session.plan.use_kernel}", flush=True)
+    require(st.session.plan.use_kernel, "the stream must use the kernels")
+    # the last Bloom batch also runs under the profiler, started after its
+    # deletions are drawn and stopped after its flush
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    rows = []
+    trace.enable()
+    try:
+        for b in range(STREAM_BATCHES):
+            last = b == STREAM_BATCHES - 1
+            rows.append(stream_batch(torch, np, kernels, trace, LS, st,
+                                     server, chunks, b, "bf",
+                                     prof if last else None))
+            verify_stream(torch, np, LS, st, rows[-1], b, "bf")
+    finally:
+        trace.disable()
+        trace.clear()
+    for key in ("gather/and2", "rows/and2"):
+        require(all(r["flush_launches"].get(key, 0) > 0 for r in rows),
+                f"a stream flush launched no {key} kernel")
+    require(all(r["delta_launches"].get("gather/and2", 0) > 0 for r in rows),
+            "a stream delta's refresh launched no gather/and2 kernel")
+    launches = {key: sum(r["delta_launches"].get(key, 0)
+                         + r["flush_launches"].get(key, 0) for r in rows)
+                for key in ("fused_gather_popcount", "fused_rows_popcount",
+                            "gather/and2", "rows/and2")}
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy_s = sum(e.self_device_time_total for e in device) / 1e6
+    wall_s = rows[-1]["delta_s"] + rows[-1]["flush_s"]
+    print(f"phase 3f: bf batch {STREAM_BATCHES - 1} (delta + flush) under "
+          f"the profiler: device busy {busy_s * 1e3:.3f} ms of "
+          f"{wall_s * 1e3:.1f} ms wall, idle share "
+          f"{max(0.0, 1 - busy_s / wall_s):.1%}; top kernels:", flush=True)
+    for e in sorted(device, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"    {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x "
+              f"{e.key[:100]}", flush=True)
+    server_stats = server.stats()
+    server.close()
+    bf_stats = st.stats()
+    del st, server
+
+    # the k-Hash stream: tie-breaking (invariant 3) on the card
+    t0 = time.perf_counter()
+    kh = StreamSession(DynamicGraph.from_edges(g.n, initial, device="cuda"),
+                       "kh", storage_budget=1.0)
+    kh_server = BatchedQueryServer(kh, max_batch=5, max_wait_s=0.25)
+    kh.session.edge_cardinalities()
+    torch.cuda.synchronize()
+    print(f"phase 3f: k-Hash stream: k={kh.maintainer.k}; open "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    kh_rows = []
+    trace.enable()
+    try:
+        for b in range(STREAM_KH_BATCHES):
+            kh_rows.append(stream_batch(torch, np, kernels, trace, LS, kh,
+                                        kh_server, chunks, b, "kh"))
+    finally:
+        trace.disable()
+        trace.clear()
+    verify_stream(torch, np, LS, kh, kh_rows[-1], STREAM_KH_BATCHES - 1,
+                  "kh")
+    kh_key = "khash_match_pairs/gather"
+    require(all(r["flush_launches"].get(kh_key, 0) > 0
+                and r["delta_launches"].get(kh_key, 0) > 0 for r in kh_rows),
+            "the k-Hash stream launched no khash_match_gather kernel")
+    launches[kh_key] = sum(r["flush_launches"].get(kh_key, 0)
+                           + r["delta_launches"].get(kh_key, 0)
+                           for r in kh_rows)
+    kh_server.close()
+    del kh, kh_server
+    peak = torch.cuda.max_memory_allocated()
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 3f: server stats {json.dumps(server_stats)}; stream stats "
+          f"{json.dumps(bf_stats)}; launches on the stream path {launches}; "
+          f"peak device memory {peak} bytes; {phase_s:.1f} s in all",
+          flush=True)
+    return dict(rows=rows, kh_rows=kh_rows, launches=launches, peak=peak,
+                phase_s=phase_s, busy_s=busy_s, wall_s=wall_s, open_s=open_s)
+
+
 def phase_breakdown(torch, TE, sketches, g, sess, warm_pass_s, build_s,
                     mh_sessions, mh_path, clique_s, sx, exact_s, lc):
     """Phase 4: where the time goes. A warm Bloom pass (TC + LCC), a Bloom
@@ -2141,7 +2381,10 @@ def main() -> None:
     phase_breakdown(torch, TE, sketches, g, sess, main_path["warm_pass_s"],
                     main_path["build_s"], mh_sessions, mh_path,
                     clq["four"]["s"], sx, xp["pass_s"], lc)
-    del g, sess, mh_sessions, sx
+    del sess, mh_sessions, sx
+    torch.cuda.empty_cache()
+    stream = phase_stream(torch, np, kernels, g)
+    del g
     torch.cuda.empty_cache()
     g12, exact = phase_reference(torch, np, TE, TG, sketches)
     phase_reference_exact(torch, np, TE, g12, exact)
@@ -2164,7 +2407,12 @@ def main() -> None:
           f"{xp['rel_err']['bf']:+.6f}); local_cluster ({LC_SEEDS} seeds) Bloom "
           f"{lc['bf']['pass_s']:.3f} s, "
           f"{lc['bf']['launches']['fused_rows_popcount']} dense AND2 "
-          f"launches, exact {lc['exact']['pass_s']:.3f} s"
+          f"launches, exact {lc['exact']['pass_s']:.3f} s; stream "
+          f"(phase 3f) {STREAM_BATCHES} Bloom batches, apply_delta "
+          f"{[round(r['delta_s'], 3) for r in stream['rows']]} s, flush "
+          f"{[round(r['flush_s'], 3) for r in stream['rows']]} s, "
+          f"launches {stream['launches']}, peak {stream['peak']} bytes, "
+          f"{stream['phase_s']:.1f} s"
           + f"; total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # each row: the kernel's launches on the paths that run it, each path
@@ -2201,6 +2449,14 @@ def main() -> None:
     gather = (main_path["launches"]["fused_gather_popcount"]
               + clq["four"]["launches"]["fused_gather_popcount"]
               + clq["five"]["launches"]["fused_gather_popcount"])
+    # the stream path's launches (phase 3f), counted into the rows of the
+    # kernels and forms it runs and also reported on their own
+    sl = stream["launches"]
+    stream_rows = {"fused_gather_popcount": sl["fused_gather_popcount"],
+                   "fused_rows_popcount": sl["fused_rows_popcount"],
+                   "bf_intersect_pairs": sl["rows/and2"],
+                   "bf_edge_intersect": sl["gather/and2"],
+                   "khash_match_gather": sl["khash_match_pairs/gather"]}
     rows = [
         ("fused_gather_popcount", fused_src,
          "src/repro/kernels/fused_expr.py:79", gather),
@@ -2245,9 +2501,13 @@ def main() -> None:
          "src/repro/kernels/fused_expr.py:129",
          lc["bf"]["forms"].get("rows/and2", 0)),
     ]
+    rows = [(name, source, replaces, launches + stream_rows.get(name, 0))
+            for name, source, replaces, launches in rows]
     records = [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,
+        **({"stream_launches": stream_rows[name]} if name in stream_rows
+           else {}),
         "max_abs_err": timing[name]["max_abs_err"],
         "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
         "bound_ms": timing[name]["bound_ms"],

@@ -13,7 +13,7 @@ calls, so a graph here is array-identical to the reference graph.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -86,67 +86,68 @@ class Graph:
                      _adj=None if self._adj is None else self._adj.to(dev))
 
 
-def canonical_edge_keys(n: int, edges) -> np.ndarray:
-    """Sorted unique canonical keys ``lo·n + hi`` (u < v) of a raw edge array.
+def canonical_edge_keys(n: int, edges,
+                        device: DeviceLike = DEFAULT_DEVICE) -> torch.Tensor:
+    """Sorted unique canonical keys ``lo·n + hi`` (u < v) of a raw edge
+    array, int64 on ``device``.
 
     Self loops and out-of-range endpoints are dropped; ``n == 0`` yields an
     empty key set.
     """
-    if edges is None:
-        return np.zeros(0, dtype=np.int64)
-    e = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
-    if e.size == 0 or n == 0:
-        return np.zeros(0, dtype=np.int64)
+    dev = resolve_device(device)
+    e = torch.from_numpy(np.asarray(
+        edges if edges is not None else np.zeros((0, 2)),
+        dtype=np.int64).reshape(-1, 2)).to(dev)
     u, v = e[:, 0], e[:, 1]
     keep = (u != v) & (u >= 0) & (v >= 0) & (u < n) & (v < n)
     u, v = u[keep], v[keep]
-    lo, hi = np.minimum(u, v), np.maximum(u, v)
-    return np.unique(lo * n + hi)
+    return torch.unique(torch.minimum(u, v) * n + torch.maximum(u, v))
 
 
 def from_edge_array(n: int, edges: np.ndarray,
                     pad_to_max_degree: Optional[int] = None,
                     device: DeviceLike = DEFAULT_DEVICE) -> Graph:
-    """Build a Graph from a (possibly duplicated / both-direction) edge array."""
+    """Build a Graph from a (possibly duplicated / both-direction) edge array.
+
+    The edges go to ``device`` first and every step runs there: the unique
+    canonical keys (:func:`canonical_edge_keys`), one sort of the directed
+    keys (CSR order) and the degrees. On a GPU the set-up's sorts then take
+    milliseconds where the host's take seconds at Kronecker scale 21; the
+    arrays are the same integers on any device.
+    """
     dev = resolve_device(device)
-    key = canonical_edge_keys(n, edges)
-    if n > 0:
-        lo, hi = key // n, key % n
-    else:
-        lo = hi = np.zeros(0, dtype=np.int64)
-    m = lo.shape[0]
+    key = canonical_edge_keys(n, edges, device=dev)
+    span = max(n, 1)
+    lo, hi = key // span, key % span
+    m = int(key.numel())
 
     # symmetric CSR ordered by (src, dst): one sort of the directed keys,
     # which orders as the reference's lexsort((dst, src)) since keys are
     # unique
-    directed = np.sort(np.concatenate([key, hi * n + lo]))
-    src = directed // max(n, 1)
-    dst = directed % max(n, 1)
-    deg = np.bincount(src, minlength=n).astype(np.int32)
-    indptr = np.zeros(n + 1, dtype=np.int32)
-    np.cumsum(deg, out=indptr[1:])
-    d_max = int(deg.max()) if n else 0
+    directed = torch.sort(torch.cat([key, hi * n + lo])).values
+    deg = torch.bincount(directed // span, minlength=n).to(torch.int32)
+    indptr = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    indptr[1:] = torch.cumsum(deg, 0)
+    d_max = int(deg.max()) if m else 0
     if pad_to_max_degree is not None:
         d_max = max(d_max, pad_to_max_degree)
     d_max = max(d_max, 1)
 
     return Graph(
-        indptr=torch.from_numpy(indptr).to(dev),
-        indices=torch.from_numpy(dst.astype(np.int32)).to(dev),
-        deg=torch.from_numpy(deg).to(dev),
-        edges=torch.from_numpy(
-            np.stack([lo, hi], axis=1).astype(np.int32)).to(dev),
-        n_vertices=int(n), n_edges=int(m), d_max=int(d_max))
+        indptr=indptr, indices=(directed % span).to(torch.int32), deg=deg,
+        edges=torch.stack([lo, hi], dim=1).to(torch.int32),
+        n_vertices=int(n), n_edges=m, d_max=int(d_max))
 
 
-def graph_view(n: int, m: int, deg: torch.Tensor, adj: torch.Tensor,
-               edges: torch.Tensor) -> Graph:
-    """``Graph`` over live device buffers: CSR derived on their device.
+def device_csr(n: int, deg: torch.Tensor, edges: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """CSR ``(indptr int32[n+1], indices int32[2m])`` of a canonical edge
+    list, derived on its device.
 
-    ``deg`` int32[n], ``adj`` int32[n, cap] sorted rows padded with n,
-    ``edges`` int32[m, 2] in canonical key order. indptr is a cumsum of
+    ``deg`` int32[n], ``edges`` int32[m, 2] (u < v). indptr is a cumsum of
     deg, and indices come from sorting both directions of the edge list by
-    (src, dst), as :func:`from_edge_array` orders them.
+    the key ``src·n + dst``, which orders them as :func:`from_edge_array`
+    does.
     """
     dev = deg.device
     indptr = torch.zeros(n + 1, dtype=torch.int32, device=dev)
@@ -154,11 +155,21 @@ def graph_view(n: int, m: int, deg: torch.Tensor, adj: torch.Tensor,
     e = edges.to(torch.int64)
     directed = torch.sort(torch.cat([e[:, 0] * n + e[:, 1],
                                      e[:, 1] * n + e[:, 0]])).values
-    indices = (directed % max(n, 1)).to(torch.int32)
-    cap = int(adj.shape[1]) if n else 1
+    return indptr, (directed % max(n, 1)).to(torch.int32)
+
+
+def graph_view(n: int, m: int, deg: torch.Tensor, edges: torch.Tensor,
+               indptr: torch.Tensor, indices: torch.Tensor,
+               d_max: int) -> Graph:
+    """``Graph`` over live device buffers, with no copy and no adjacency.
+
+    ``deg`` int32[n], ``edges`` int32[m, 2] in canonical key order, the CSR
+    ``indptr``/``indices`` of those edges (:func:`device_csr`) and
+    ``d_max`` the true maximum degree (at least 1), as
+    :func:`from_edge_array` gives it.
+    """
     return Graph(indptr=indptr, indices=indices, deg=deg, edges=edges,
-                 n_vertices=int(n), n_edges=int(m), d_max=max(cap, 1),
-                 _adj=adj)
+                 n_vertices=int(n), n_edges=int(m), d_max=max(int(d_max), 1))
 
 
 # ----------------------------------------------------------------------------

@@ -8,6 +8,8 @@ from :mod:`repro_torch.engine.api`, the facade that pins the surface.
 """
 from . import api, setexpr
 from .engine import (
+    DeviceCarry,
+    Footprint,
     MiningSession,
     edge_cardinalities,
     pair_cardinality_fn,
@@ -24,7 +26,8 @@ from .plan import (EnginePlan, fold_edges, fold_edges_masked, map_edges,
                    order_edges_by_hub, plan_for, pow2_bucket)
 
 __all__ = [
-    "EnginePlan", "MiningSession", "api", "edge_cardinalities",
+    "DeviceCarry", "EnginePlan", "Footprint", "MiningSession", "api",
+    "edge_cardinalities",
     "fold_edges", "fold_edges_masked", "map_edges", "order_edges_by_hub",
     "pair_cardinality_fn", "plan_for", "pow2_bucket", "resolve_plan",
     "segment_cardinality_ones", "session", "setexpr", "sum_edge_cardinalities",

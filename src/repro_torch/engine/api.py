@@ -8,6 +8,8 @@ from __future__ import annotations
 
 from . import setexpr
 from .engine import (
+    DeviceCarry,
+    Footprint,
     MiningSession,
     edge_cardinalities,
     pair_cardinality_fn,
@@ -39,7 +41,8 @@ from .setexpr import (
 )
 
 __all__ = [
-    "CompiledSetExpr", "EnginePlan", "MiningSession", "Row", "SetExpr",
+    "CompiledSetExpr", "DeviceCarry", "EnginePlan", "Footprint",
+    "MiningSession", "Row", "SetExpr",
     "and_all", "compile_expr", "edge_cardinalities", "fold_edges",
     "map_edges", "or_all", "order_edges_by_hub", "pair_cardinality_fn",
     "plan_for", "pow2_bucket", "resolve_plan", "rows",

@@ -14,16 +14,18 @@
     or none, the exact baseline) and run TC, LCC, 4- and 5-clique counts,
     Jarvis–Patrick clustering, the similarities and local clustering over
     it (TC, LCC and clustering share one per-edge cardinality pass).
+  * ``MiningSession.refresh`` with a host carry or a :class:`DeviceCarry`
+    — the streaming tier's delta-aware cache refresh — and
+    :class:`Footprint`, the serving tier's invalidation unit.
 
-Edge sharding (``shard_edges=True``), the streaming refresh
-(``DeviceCarry``) and the footprints of the serving tier come with later
-slices.
+Edge sharding (``shard_edges=True``) comes with a later slice.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .._device import DEFAULT_DEVICE, DeviceLike, resolve_device
@@ -187,8 +189,106 @@ def wedge_quad_ones(sketch: SketchSet, u: torch.Tensor, v: torch.Tensor,
 
 
 # ----------------------------------------------------------------------------
+# answer footprints (the serving tier's invalidation unit)
+# ----------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Footprint:
+    """The vertex set one answer was computed from.
+
+    A pair score reads exactly two sketch rows and two degrees, a
+    membership test one row, a local cluster the rows/degrees of its PPR
+    support — so ``vertices`` lists exactly the vertex ids whose adjacency,
+    degree, or sketch row the answer depends on. A result cached above the
+    engine stays valid until a delta touches (or a maintenance flush
+    rebuilds) a footprint vertex; ``vertices is None`` marks whole-graph
+    answers (triangle counts fold every edge) that no delta can survive.
+    """
+
+    vertices: Optional[np.ndarray]
+
+    @classmethod
+    def whole_graph(cls) -> "Footprint":
+        """Footprint of an answer that reads every edge (e.g. TC)."""
+        return cls(None)
+
+    @classmethod
+    def of(cls, *vertex_sets) -> "Footprint":
+        """Union footprint of the given vertex id arrays / scalars."""
+        arrs = [np.asarray(a, dtype=np.int64).reshape(-1)
+                for a in vertex_sets if a is not None]
+        arrs = [a for a in arrs if a.size]
+        if not arrs:
+            return cls(np.zeros(0, np.int64))
+        return cls(np.unique(np.concatenate(arrs)))
+
+    @property
+    def is_whole_graph(self) -> bool:
+        """True when the answer depends on the entire graph."""
+        return self.vertices is None
+
+    def intersects(self, vertices) -> bool:
+        """Does any of ``vertices`` invalidate this footprint?"""
+        if self.vertices is None:
+            return True
+        return bool(np.isin(np.asarray(vertices, dtype=np.int64),
+                            self.vertices).any())
+
+
+# ----------------------------------------------------------------------------
 # multi-query session
 # ----------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DeviceCarry:
+    """Device-resident carry for :meth:`MiningSession.refresh`.
+
+    A streaming graph derives the position carry on its device (from its
+    edge-list splice) and uploads only the delta-sized recompute set, so
+    refresh traffic scales with the delta.
+
+    Attributes:
+      carry:         int[>= m_new] device — new edge j carried old position
+                     ``carry[j]`` (>= 0), or < 0 for an inserted edge. Entries
+                     in the recompute set may be stale; they are overwritten.
+      recompute_pos: int[R_b] device — positions whose cached cardinality
+                     must be recomputed (covers every carry < 0 and every
+                     edge with an invalidated endpoint); entries >= m_new
+                     are padding and are dropped.
+      n_recompute:   the true number R of recomputed positions.
+      edges_full:    int32[E_cap, 2] device — the capacity-padded edge buffer
+                     the recompute edges are gathered from (rows past m are
+                     the sentinel ``(n, n)``).
+    """
+
+    carry: torch.Tensor
+    recompute_pos: torch.Tensor
+    n_recompute: int
+    edges_full: torch.Tensor
+
+
+def _carry_cards(old_cards: torch.Tensor, carry: torch.Tensor,
+                 m_new: int) -> torch.Tensor:
+    """Gather the carried cardinalities of the first ``m_new`` positions
+    (negative carries clip to 0; the caller overwrites those)."""
+    c = carry[:m_new].to(torch.int64).clamp(0, old_cards.shape[0] - 1)
+    return old_cards[c]
+
+
+def _carry_scatter_cards(old_cards: torch.Tensor, carry: torch.Tensor,
+                         pos: torch.Tensor, sub: torch.Tensor,
+                         m_new: int) -> torch.Tensor:
+    """Carried cardinalities with the recomputed subset written over them.
+
+    Padded positions (>= m_new) are sent to one spare slot past the end,
+    which is cut off: torch has no scatter mode that drops them."""
+    cards = torch.empty(m_new + 1, dtype=old_cards.dtype,
+                        device=old_cards.device)
+    cards[:m_new] = _carry_cards(old_cards, carry, m_new)
+    pos = pos.to(torch.int64)
+    cards[torch.where(pos < m_new, pos, m_new)] = sub
+    return cards[:m_new]
+
 
 class MiningSession:
     """Amortizes one sketch build and one per-edge cardinality pass across
@@ -290,6 +390,84 @@ class MiningSession:
         dv = self.graph.deg[edges[:, 1].long()].to(torch.float32)
         return similarity_from_cardinalities(self.edge_cardinalities(),
                                              du, dv, measure)
+
+    def refresh(self, graph: Graph, sketch: Optional[SketchSet] = None,
+                carry_index=None) -> Optional[int]:
+        """Delta-aware cache invalidation: repoint the session at an updated
+        (graph, sketch) and recompute only the invalidated edge cardinalities.
+
+        ``carry_index[j]`` is the position of new edge j in the *previous*
+        ``graph.edges`` when its cached cardinality is still valid (neither
+        endpoint's neighborhood, degree, or sketch row changed), or -1 to
+        recompute. With ``carry_index=None`` the whole cache is dropped.
+        A :class:`DeviceCarry` keeps the whole exchange on the device
+        (carried values are gathered by the device permutation, only the
+        delta-sized recompute positions were uploaded). Returns the number
+        of per-edge cardinalities recomputed, or ``None`` when the cache was
+        dropped instead (the full pass then happens lazily).
+
+        Per-pair estimators are elementwise in the pair, so recomputing only
+        the invalidated subset is bit-identical to a from-scratch pass.
+        """
+        with trace.span("engine.refresh") as sp:
+            result = self._refresh(graph, sketch, carry_index)
+            sp.set(recomputed=-1 if result is None else result)
+            if self._edge_cards is not None:
+                sp.fence(self._edge_cards)
+            return result
+
+    def _refresh(self, graph, sketch, carry_index):
+        old_cards = self._edge_cards
+        self.graph = graph
+        if sketch is not None:
+            self.sketch = sketch
+        if (old_cards is None or carry_index is None
+                or int(old_cards.shape[0]) == 0):
+            self._edge_cards = None
+            return None
+        if isinstance(carry_index, DeviceCarry):
+            return self._refresh_device(old_cards, carry_index)
+        carry = np.asarray(carry_index, dtype=np.int64)
+        dev = old_cards.device
+        if carry.shape[0] == 0:
+            self._edge_cards = torch.zeros(0, dtype=torch.float32, device=dev)
+            return 0
+        recompute = np.nonzero(carry < 0)[0]
+        cards = old_cards[torch.from_numpy(np.where(carry < 0, 0, carry))
+                          .to(dev)]
+        if recompute.size:
+            idx = torch.from_numpy(recompute).to(dev)
+            cards[idx] = edge_cardinalities(self.graph, self.sketch,
+                                            self.plan,
+                                            edges=self.graph.edges[idx])
+        self._edge_cards = cards
+        return int(recompute.size)
+
+    def _refresh_device(self, old_cards: torch.Tensor,
+                        dc: DeviceCarry) -> int:
+        """Device-side cache carry: gather by the splice permutation, then
+        recompute only the invalidated positions (edges gathered on the
+        device, no host round-trip)."""
+        m_new = self.graph.m
+        if m_new == 0:
+            self._edge_cards = torch.zeros(0, dtype=torch.float32,
+                                           device=old_cards.device)
+            return 0
+        if dc.n_recompute:
+            # padded positions hit sentinel rows (n, n): clamp the vertex id
+            # to a real row first, as the kernels read rows by raw id and
+            # the plain path must compute the same numbers; the scatter
+            # then drops those cardinalities
+            sub_edges = torch.clamp(
+                dc.edges_full[dc.recompute_pos.to(torch.int64)],
+                max=max(self.graph.n - 1, 0))
+            sub = edge_cardinalities(self.graph, self.sketch, self.plan,
+                                     edges=sub_edges)
+            self._edge_cards = _carry_scatter_cards(
+                old_cards, dc.carry, dc.recompute_pos, sub, m_new)
+        else:
+            self._edge_cards = _carry_cards(old_cards, dc.carry, m_new)
+        return int(dc.n_recompute)
 
     def stats(self) -> dict:
         """Session facts: graph sizes, sketch kind/bytes, JSON-able plan."""

@@ -106,18 +106,22 @@ def test_from_edge_array_and_erdos_renyi_identical():
     _assert_same_graph(RG.erdos_renyi(300, 0.05, seed=7),
                        TG.erdos_renyi(300, 0.05, seed=7, device=CPU))
     assert np.array_equal(RG.canonical_edge_keys(64, raw),
-                          TG.canonical_edge_keys(64, raw))
+                          TG.canonical_edge_keys(64, raw, CPU).numpy())
 
 
 def test_graph_view_and_host_helpers():
-    """graph_view derives the same CSR; neighbors_np and the dense TC
-    oracle agree with the reference."""
+    """device_csr derives the same CSR and graph_view wraps it with the
+    true d_max and no adjacency; neighbors_np and the dense TC oracle agree
+    with the reference."""
     rg = RG.kronecker(9, 8, seed=2)
     tg = TG.kronecker(9, 8, seed=2, device=CPU)
-    view = TG.graph_view(tg.n, tg.m, tg.deg, tg.adj, tg.edges)
-    assert torch.equal(view.indptr, tg.indptr)
-    assert torch.equal(view.indices, tg.indices)
-    assert view.adj is tg.adj
+    indptr, indices = TG.device_csr(tg.n, tg.deg, tg.edges)
+    assert torch.equal(indptr, tg.indptr)
+    assert torch.equal(indices, tg.indices)
+    view = TG.graph_view(tg.n, tg.m, tg.deg, tg.edges, indptr, indices,
+                         int(tg.deg.max()))
+    assert view.indptr is indptr and view.edges is tg.edges
+    assert view.d_max == tg.d_max == rg.d_max and view._adj is None
     for v in (0, 3, 100):
         assert np.array_equal(RG.neighbors_np(rg, v), TG.neighbors_np(tg, v))
     assert RG.triangle_count_dense(rg) == TG.triangle_count_dense(tg)

@@ -1,4 +1,6 @@
-"""Port parity, the slice as a whole: Bloom TC and LCC through the engine.
+"""Port parity, the slice as a whole: Bloom TC and LCC through the engine;
+also ``MiningSession.refresh`` (host and device carries) against the
+reference's and a full pass, and ``Footprint``.
 
 ``session(kronecker(12, 16, seed=1), "bf", storage_budget=0.25)`` runs on
 both sides, the reference with ``use_kernel=False`` and the port on the
@@ -19,10 +21,12 @@ import torch
 
 from repro import engine as RE
 from repro.core import graph as RG
+from repro.core import sketches as RS
 from repro.core.algorithms import tc as RT
 from repro.launch import mine as RM
 from repro_torch import engine as TE
 from repro_torch.core import graph as TG
+from repro_torch.core import sketches as TS
 from repro_torch.core.algorithms import tc as TT
 from repro_torch.launch import mine as TM
 from repro_torch.obs import trace as TTR
@@ -171,3 +175,75 @@ def test_spans_and_unported_paths(sessions):
         TE.session(tg, "bf", device=CPU, bogus=1)
     forked = ts.fork()
     assert forked.sketch is ts.sketch and forked.plan == ts.plan
+
+
+@pytest.fixture(scope="module")
+def refresh_graphs():
+    """kronecker(9, 8, seed=1) before and after a delta (50 edges gone,
+    200 new), both packages, with the host carry of the reference's
+    ``DynamicGraph.carry_index`` contract: new edge j's position in the old
+    edge order, or -1 when it is new or an endpoint was touched."""
+    full = np.asarray(RG.kronecker(9, 8, seed=1).edges).astype(np.int64)
+    n = 1 << 9
+    old = full[:-200]
+    new = np.concatenate([old[50:], full[-200:]])
+    touched = np.unique(np.concatenate([old[:50], full[-200:]]).ravel())
+    rg1, rg2 = RG.from_edge_array(n, old), RG.from_edge_array(n, new)
+    tg1 = TG.from_edge_array(n, old, device=CPU)
+    tg2 = TG.from_edge_array(n, new, device=CPU)
+    k1 = tg1.edges.numpy().astype(np.int64) @ np.array([n, 1])
+    k2 = tg2.edges.numpy().astype(np.int64) @ np.array([n, 1])
+    pos = np.minimum(np.searchsorted(k1, k2), k1.size - 1)
+    bad = np.isin(tg2.edges.numpy(), touched).any(1)
+    carry = np.where((k1[pos] == k2) & ~bad, pos, -1)
+    return rg1, rg2, tg1, tg2, carry
+
+
+def test_refresh_host_and_device_carries(refresh_graphs):
+    """``refresh`` with a host carry and with a ``DeviceCarry`` (positions
+    padded past m_new, the edge buffer padded with sentinel rows): the
+    same recompute count as the reference's ``refresh``, per-edge
+    estimates within rtol 1e-6 of it, and bit-identical to a full pass."""
+    rg1, rg2, tg1, tg2, carry = refresh_graphs
+    rsk2 = RS.build(rg2, "bf", storage_budget=0.25)
+    tsk2 = TS.build(tg2, "bf", storage_budget=0.25)
+    full = TE.session(tg2, tsk2, device=CPU).edge_cardinalities()
+    recompute = np.nonzero(carry < 0)[0]
+    m_new, pad = tg2.m, 13
+    for form in ("host", "device"):
+        rs = RE.session(rg1, "bf", storage_budget=0.25, use_kernel=False)
+        ts = TE.session(tg1, "bf", storage_budget=0.25, device=CPU)
+        rs.edge_cardinalities()
+        ts.edge_cardinalities()
+        if form == "host":
+            r_carry, t_carry = carry, carry
+        else:
+            pos = np.concatenate([recompute, m_new + np.arange(pad)])
+            buf = np.concatenate([tg2.edges.numpy(),
+                                  np.full((pad + 3, 2), tg2.n, np.int32)])
+            r_carry = RE.DeviceCarry(jnp.asarray(carry), jnp.asarray(pos),
+                                     recompute.size, jnp.asarray(buf))
+            t_carry = TE.DeviceCarry(torch.from_numpy(carry),
+                                     torch.from_numpy(pos), recompute.size,
+                                     torch.from_numpy(buf))
+        assert ts.refresh(tg2, tsk2, t_carry) == \
+            rs.refresh(rg2, rsk2, r_carry) == recompute.size > 0
+        got = ts.edge_cardinalities()
+        assert torch.equal(got, full), form
+        np.testing.assert_allclose(got.numpy(),
+                                   np.asarray(rs.edge_cardinalities()),
+                                   rtol=1e-6)
+    ts = TE.session(tg1, "bf", storage_budget=0.25, device=CPU)
+    ts.edge_cardinalities()
+    assert ts.refresh(tg2) is None and ts._edge_cards is None
+    assert ts.graph is tg2
+
+
+def test_footprints_match_reference():
+    fp = TE.Footprint.of(np.array([[3, 1], [7, 3]]), 9, None)
+    ref = RE.Footprint.of(np.array([[3, 1], [7, 3]]), 9, None)
+    np.testing.assert_array_equal(fp.vertices, ref.vertices)
+    assert fp.intersects([7]) and not fp.intersects([2, 8])
+    whole = TE.Footprint.whole_graph()
+    assert whole.is_whole_graph and whole.intersects([0])
+    assert not TE.Footprint.of().intersects([0])

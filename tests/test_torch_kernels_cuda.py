@@ -685,3 +685,83 @@ def test_exact_session_equals_brute_force(cuda):
         got = sess.similarity(torch.from_numpy(pairs).to(cuda), measure)
         assert np.allclose(got.cpu().numpy(), want, rtol=1e-5, atol=0)
     assert sum(fused_expr.LAUNCHES.values()) == 0
+
+
+def test_stream_on_the_card_equals_the_cpu_stream(cuda):
+    """A Bloom and a k-Hash stream on the card (inserts, deletions, a
+    server flush) give the CPU stream's sketch rows, device CSR and
+    integer answers, with the AND2 gather (refresh, pair batch), the dense
+    AND2 (sweep) and the k-Hash gather launched. The Bloom stream's AND2
+    popcounts of its query pairs and live edges are equal on both, and its
+    served pair answers and refreshed per-edge cardinalities agree within
+    ROADMAP difference 2 (an ulp of ``log1p``: rtol 1e-6)."""
+    import numpy as np
+
+    from repro_torch.kernels import mh_intersect
+    from repro_torch.stream import BatchedQueryServer, DynamicGraph, \
+        StreamSession
+
+    g = TG.kronecker(10, 16, seed=1, device="cpu")
+    edges = g.edges.numpy().astype(np.int64)
+    for kind, key in (("bf", "gather/and2"),
+                      ("kh", "khash_match_pairs/gather")):
+        out = {}
+        for dev in ("cpu", cuda):
+            st = StreamSession(DynamicGraph.from_edges(g.n, edges[:9000],
+                                                       device=dev),
+                               kind, storage_budget=1.0)
+            srv = BatchedQueryServer(st, min_batch=8)
+            st.session.edge_cardinalities()
+            fused_expr.reset_launch_counts()
+            mh_intersect.reset_launch_counts()
+            rng = np.random.default_rng(3)
+            for chunk in np.array_split(edges[9000:], 2):
+                cur = st.dyn.edge_array()
+                st.apply_delta(chunk, cur[rng.choice(cur.shape[0], 50,
+                                                     replace=False)])
+            pairs = rng.integers(0, g.n, (64, 2)).astype(np.int32)
+            rid = srv.submit_similarity(pairs, "common")
+            lc = srv.submit_local_cluster(5, 0.15, 1e-3)
+            res = srv.flush()
+            forms = {**fused_expr.FORM_LAUNCHES, **mh_intersect.FORM_LAUNCHES}
+            view = st.graph
+            ones = None
+            if kind == "bf":
+                ones = [TE.tuple_cardinality_ones(
+                    st.sketch, t, st.session.plan).cpu()
+                    for t in (torch.from_numpy(pairs).to(dev), view.edges)]
+            out[str(dev)] = (st.sketch.data.cpu(), view.indices.cpu(),
+                             view.indptr.cpu(), res[rid].value,
+                             res[lc].value["size"], forms, ones,
+                             st.session.edge_cardinalities().cpu().numpy())
+            srv.close()
+        cpu, card = out["cpu"], out[str(cuda)]
+        for a, b in zip(cpu[:3], card[:3]):
+            assert torch.equal(a, b), kind
+        if kind == "kh":
+            assert np.array_equal(cpu[3], card[3])   # integer match counts
+        else:
+            for a, b in zip(cpu[6], card[6]):        # AND2 popcounts
+                assert torch.equal(a, b)
+            assert np.allclose(card[3], cpu[3], rtol=1e-6, atol=0)
+            assert np.allclose(card[7], cpu[7], rtol=1e-6, atol=0)
+        assert cpu[4] == card[4]
+        assert card[5].get(key, 0) > 0 and not cpu[5], (kind, card[5])
+        if kind == "bf":
+            assert card[5].get("rows/and2", 0) == 1
+
+
+def test_from_edge_array_on_the_card_equals_the_cpu(cuda):
+    """The static graph's keys, CSR and degrees sorted on the card equal
+    the CPU's (duplicates, both directions, self loops and out-of-range
+    ids in the input)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    edges = rng.integers(-2, 3000, size=(60000, 2))
+    edges[:100] = edges[100:200, ::-1]
+    cpu = TG.from_edge_array(2990, edges, device="cpu")
+    card = TG.from_edge_array(2990, edges, device=cuda)
+    for name in ("indptr", "indices", "deg", "edges"):
+        assert torch.equal(getattr(cpu, name), getattr(card, name).cpu())
+    assert (cpu.m, cpu.d_max) == (card.m, card.d_max)
