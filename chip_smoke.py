@@ -13,7 +13,9 @@ Phases, each printed as it runs:
      nested, 8-leaf and permuted-column programs), row widths 1..600
      (every vector width, column blocks), tuple counts at the kernels'
      tile edges and up to ~1M, ids to clamp, operands whose base is
-     shifted by 4 bytes, and two-column tuples; the MinHash counts in
+     shifted by 4 bytes, and two-column tuples; the dense AND2 at every
+     power-of-two width from 2 to 4,096 words (the adaptive Bloom's
+     folded operands); the MinHash counts in
      both forms (rows: int32[E, k] rows; gather: the sketch matrix and
      pairs of ids) over k in {1, 4, 7, 24, 28, 31, 32, 33, 128, 256},
      ragged E up to ~1M and 0, with
@@ -104,6 +106,33 @@ Phases, each printed as it runs:
      device CSR). The last batch runs under torch.profiler (device busy,
      idle share, top kernels). Then a k-Hash stream (k = 22) of 1 batch,
      held the same way (rows equal to a fresh ``build_khash``).
+     Checkpoints: after the first Bloom batch ``st.save`` (bytes on
+     disk, seconds); after the last, ``StreamSession.restore`` of that
+     checkpoint on the card, its state (edge keys, degrees, device CSR,
+     sketch rows, dirty, stale, counters, version) equal to the live
+     session's at that version; batch 1 replayed on it with the
+     launcher's RNG, after which state, TC float32 bits and the five
+     answers equal the live session's; one ``AsyncCheckpointer`` write
+     read back. The directory is deleted at the end.
+  3g. On the phase-3 graph: the degree-adaptive Bloom (s = 1.0, k = 2):
+     Σ words, bytes, size classes, build time; sampled rows (hubs
+     included) equal to ``build_adaptive_bloom_np``;
+     ``adaptive_triangle_count`` with launches zeroed before and read
+     after (only ``rows/and2`` may run; no n x words_max tensor), its
+     error against the exact count beside the fixed Bloom's, a warm pass
+     unprofiled and under torch.profiler (device busy, idle share, the
+     dense AND2's share, top kernels); the
+     popcounts of a 1M-edge sample (hub edges included) equal to the
+     plain path's. Link prediction (removed 0.1, seed 0, ``common``):
+     2,000,000 distance-2 candidates equal to a numpy rule, ef for the
+     exact, Bloom (s = 1.0) and k-Hash scorers with their launches, the
+     kernel path's counts and scores equal to the plain path's; the Bloom
+     scorer again at scale 16, where fewer edges are removed than there
+     are candidates. MinHash dedup of a 50,000-doc corpus (5,000 planted
+     near-duplicates) with k = k_for(0.1, 0.01) = 265: seconds per step,
+     candidates, duplicates dropped; sketches of 200 sampled docs equal to
+     numpy's and a 2,000-doc sub-corpus's keep mask and stats equal to the
+     reference's rule run in numpy.
   4. Where the time goes: a warm Bloom pass (and the [T, k] gather
      kernel's time per launch in it), a Bloom sketch build, warm k-Hash
      and 1-Hash-naive passes, the scale-21 4-clique pass, the exact
@@ -128,8 +157,10 @@ from __future__ import annotations
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -141,6 +172,17 @@ SCALE = 21
 CLIQUE5_SCALE = 16
 #: exact counts of kronecker(12, 16, seed=1), by brute force over sets
 EXACT_4CLIQUES_12, EXACT_5CLIQUES_12 = 4_032_443, 26_522_168
+#: row widths of the adaptive Bloom's size classes (phase 2 and 3g), words
+ADAPTIVE_WIDTHS = tuple(1 << i for i in range(1, 13))
+#: phase 3g: the scale of the second link-prediction graph, where the
+#: removed edges are fewer than the candidates and the ranking decides ef
+LINKPRED_SMALL_SCALE = 16
+#: phase 3g: the dedup corpus (originals, planted near-duplicates, token
+#: lengths, vocabulary), its parameters, and the docs checked against numpy
+DEDUP_DOCS, DEDUP_DUPS, DEDUP_LEN, DEDUP_VOCAB = 45_000, 5_000, (200, 2000), \
+    50_257
+DEDUP_THRESHOLD, DEDUP_W = 0.7, 5
+DEDUP_CHECKED, DEDUP_SAMPLED = 2_000, 200
 
 #: the repo's prefill_32k attention shapes (src/repro/configs/):
 #: name -> (batch, seq, heads, kv heads, head dim, window)
@@ -356,6 +398,23 @@ def phase_kernels(torch, setexpr, fused_expr, ref, flush):
           f"{checked} cases ({len(cases)} shapes x {len(programs)} programs "
           f"x 2 forms x aligned and 4-byte shifted operands, and [T, 2] "
           f"ids); max_abs_err {max(err.values())}", flush=True)
+    # the adaptive Bloom pass's widths (phase 3g): the dense AND2 over
+    # folded operands of every power-of-two width up to 4,096 words
+    and2, wide = programs["AND2"], 0
+    for W in ADAPTIVE_WIDTHS:
+        for T in (1, 33, max(65, (1 << 22) // W)):
+            a, b = (torch.randint(-2**31, 2**31 - 1, (T, W),
+                                  dtype=torch.int32, device=dev,
+                                  generator=gen) for _ in range(2))
+            a[::5] = -1                               # all-ones rows
+            want = ref.fused_rows_popcount([a, b], and2)
+            for lhs, how in ((a, ""), (shifted(torch, a), " (shifted)")):
+                check("rows/AND2", fused_expr.fused_rows_popcount(
+                    [lhs, b], and2), want, f"W={W} T={T}{how} (adaptive)")
+                wide += 1
+    print(f"phase 2: the dense AND2 equals its plain version at the adaptive "
+          f"pass's widths {ADAPTIVE_WIDTHS[0]}..{ADAPTIVE_WIDTHS[-1]} words "
+          f"({wide} cases, aligned and 4-byte shifted)", flush=True)
 
     # timing at the main path's shape: scale-21 rows of 32 words, one
     # 65,536-edge chunk; AND2 is the TC pass, AND3 the 4-clique form
@@ -1887,6 +1946,124 @@ def verify_stream(torch, np, LS, st, row, b: int, kind: str):
             f"{check}")
 
 
+def stream_state(st) -> dict:
+    """What a checkpoint must carry across, by reference (every published
+    array and tensor is immutable once published; dirty/stale are copied):
+    version, host edge keys and degrees, device CSR, sketch rows, dirty,
+    stale and the maintenance counters."""
+    view, mt = st.graph, st.maintainer
+    return {"version": st.version, "edge_keys": st.dyn.edge_keys,
+            "deg": st.dyn.deg,
+            "csr": {f: getattr(view, f)
+                    for f in ("indptr", "indices", "deg", "edges")},
+            "sketch": mt.sketch.data, "dirty": mt.dirty.copy(),
+            "stale": mt.stale.copy(),
+            "counters": (mt.rows_incremental, mt.rows_rebuilt,
+                         mt.deltas_applied)}
+
+
+def require_same_state(torch, np, got: dict, want: dict, what: str) -> None:
+    """Fail unless two :func:`stream_state` records are equal."""
+    diff = [key for key in ("version", "counters") if got[key] != want[key]]
+    diff += [key for key in ("edge_keys", "deg", "dirty", "stale")
+             if not np.array_equal(got[key], want[key])]
+    diff += [f"csr.{f}" for f in got["csr"]
+             if not torch.equal(got["csr"][f], want["csr"][f])]
+    if not torch.equal(got["sketch"], want["sketch"]):
+        diff.append("sketch")
+    require(not diff, f"{what}: {diff} differ")
+
+
+def same_value(np, a, b) -> bool:
+    """Exact equality of two served answers (dicts, lists, arrays,
+    numbers)."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and set(a) == set(b)
+                and all(same_value(np, a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (len(a) == len(b)
+                and all(same_value(np, x, y) for x, y in zip(a, b)))
+    if isinstance(a, np.ndarray):
+        return a.dtype == np.asarray(b).dtype and np.array_equal(a, b)
+    return a == b
+
+
+def stream_restore(torch, np, LS, st, saved: dict, live: dict, chunks,
+                   ck_dir: str) -> dict:
+    """Phase 3f, checkpoints: restore the version-1 checkpoint on the card,
+    require its state to equal the live session's at version 1, replay
+    batch 1 with the launcher's RNG, and require the state, the TC float32
+    bits and the five answers to equal the live session's after batch 1;
+    then one ``AsyncCheckpointer`` write read back."""
+    from repro_torch.checkpoint import (AsyncCheckpointer, latest_step,
+                                        restore_checkpoint)
+    from repro_torch.stream import BatchedQueryServer, StreamSession
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = StreamSession.restore(ck_dir, device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    require_same_state(torch, np, stream_state(r), saved,
+                       "the restored session against the live one at "
+                       "version 1")
+    server = BatchedQueryServer(r, max_batch=5, max_wait_s=0.25)
+    r.session.edge_cardinalities()      # warm, as the launcher does
+    b = 1
+    rng = np.random.default_rng([STREAM_SEED + 2, b])
+    dels = LS.batch_deletes(r, rng, len(chunks[b]), 0.1)
+    t0 = time.perf_counter()
+    info = r.apply_delta(chunks[b], dels)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    q = LS.submit_queries(server, rng, r.dyn.n, 64)
+    answers = server.flush()
+    server.close()
+    require_same_state(torch, np, stream_state(r), stream_state(st),
+                       "the restored session after replaying batch 1 "
+                       "against the live one")
+    tc_r, tc_l = float(r.triangle_count()), float(st.triangle_count())
+    require(np.float32(tc_r).tobytes() == np.float32(tc_l).tobytes(),
+            f"restored TC {tc_r!r} vs live {tc_l!r}")
+    for name, rid in q["rids"].items():
+        require(same_value(np, answers[rid].value,
+                           live["answers"][live["q"]["rids"][name]].value),
+                f"restored {name} answer differs from the live session's")
+    same_info = {key: info[key] == live["info"][key] for key in info}
+    require(all(v for key, v in same_info.items()
+                if key != "bytes_uploaded"),
+            f"replayed delta {info} vs live {live['info']}")
+    del r, server
+    # the asynchronous writer: copy to the host now, write in a thread
+    ack_dir = ck_dir + "/async"
+    ck = AsyncCheckpointer(ack_dir, keep=1)
+    t0 = time.perf_counter()
+    ck.save(st.version, {"edge_keys": st.dyn.edge_keys,
+                         "sketch": st.sketch.data})
+    async_save_s = time.perf_counter() - t0
+    ck.wait()
+    async_s = time.perf_counter() - t0
+    back = restore_checkpoint(ack_dir, st.version, {
+        "edge_keys": torch.empty(st.dyn.edge_keys.shape, dtype=torch.int64,
+                                 device="meta"),
+        "sketch": torch.empty(st.sketch.data.shape, dtype=torch.int32,
+                              device="meta")}, device="cuda")
+    require(latest_step(ack_dir) == st.version
+            and torch.equal(back["sketch"], st.sketch.data)
+            and np.array_equal(back["edge_keys"].cpu().numpy(),
+                               st.dyn.edge_keys),
+            "AsyncCheckpointer's write does not read back")
+    print(f"phase 3f: checkpoint restored on the card in {restore_s:.2f} s, "
+          f"state equal to the live session's at version 1; batch 1 "
+          f"replayed in {replay_s:.2f} s (bytes uploaded {info['bytes_uploaded']}"
+          f" vs live {live['info']['bytes_uploaded']}); state, TC float32 "
+          f"bits ({tc_r!r}) and the five answers equal the live session's; "
+          f"AsyncCheckpointer: save returned in {async_save_s:.2f} s, "
+          f"written in {async_s:.2f} s, read back equal", flush=True)
+    return dict(restore_s=restore_s, replay_s=replay_s,
+                async_save_s=async_save_s, async_s=async_s)
+
+
 def phase_stream(torch, np, kernels, g):
     """Phase 3f: the streaming serving path at scale 21 (the phase-3
     edges): a Bloom ``StreamSession`` behind a ``BatchedQueryServer``
@@ -1925,6 +2102,7 @@ def phase_stream(torch, np, kernels, g):
     # deletions are drawn and stopped after its flush
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     rows = []
+    ck_dir = tempfile.mkdtemp(prefix="pg_stream_ck_")
     trace.enable()
     try:
         for b in range(STREAM_BATCHES):
@@ -1933,9 +2111,24 @@ def phase_stream(torch, np, kernels, g):
                                      server, chunks, b, "bf",
                                      prof if last else None))
             verify_stream(torch, np, LS, st, rows[-1], b, "bf")
+            if b == 0:
+                saved = stream_state(st)
+                t0 = time.perf_counter()
+                path = Path(st.save(ck_dir))
+                save_s = time.perf_counter() - t0
+                ck_bytes = sum(f.stat().st_size for f in path.iterdir())
+                print(f"phase 3f: checkpoint of version {st.version}: "
+                      f"{ck_bytes} bytes on disk, saved in {save_s:.2f} s",
+                      flush=True)
+        trace.disable()
+        trace.clear()
+        ck = stream_restore(torch, np, LS, st, saved, rows[1], chunks,
+                            ck_dir)
+        ck.update(bytes=ck_bytes, save_s=save_s)
     finally:
         trace.disable()
         trace.clear()
+        shutil.rmtree(ck_dir, ignore_errors=True)
     for key in ("gather/and2", "rows/and2"):
         require(all(r["flush_launches"].get(key, 0) > 0 for r in rows),
                 f"a stream flush launched no {key} kernel")
@@ -1997,7 +2190,8 @@ def phase_stream(torch, np, kernels, g):
           f"peak device memory {peak} bytes; {phase_s:.1f} s in all",
           flush=True)
     return dict(rows=rows, kh_rows=kh_rows, launches=launches, peak=peak,
-                phase_s=phase_s, busy_s=busy_s, wall_s=wall_s, open_s=open_s)
+                phase_s=phase_s, busy_s=busy_s, wall_s=wall_s, open_s=open_s,
+                checkpoint=ck)
 
 
 def phase_breakdown(torch, TE, sketches, g, sess, warm_pass_s, build_s,
@@ -2066,6 +2260,428 @@ def phase_breakdown(torch, TE, sketches, g, sess, warm_pass_s, build_s,
     require(sum(e.count for e in tile) > 0, "the local_cluster profile "
             "shows no launch of the dense AND2 kernel")
     return pass_busy, build_busy, mh_busy, clique_busy, exact_busy, lc_busy
+
+
+def phase_adaptive(torch, np, kernels, g, tc_fixed: float, tc_exact: int
+                   ) -> dict:
+    """Phase 3g, adaptive Bloom at scale 21 (s = 1.0, k = 2, the fixed
+    Bloom's budget and hashes): build, sampled rows (hubs included)
+    against the host twin, the triangle count with launches zeroed before
+    and read after (only ``rows/and2`` may run), and the popcounts of a
+    1M-edge sample (hub edges included) against the plain path."""
+    from repro_torch.core import adaptive as AD
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sk = AD.build_adaptive_bloom(g, 1.0, num_hashes=2, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
+    words = sk.words.to(torch.int64)
+    hist = {int(w): int(c) for w, c in zip(*torch.unique(
+        words, return_counts=True))}
+    total_words = sk.data.numel()
+    deg = g.deg.to(torch.int64)
+    eu, ev = g.edges[:, 0].long(), g.edges[:, 1].long()
+    pair_bytes = int((words[eu] + words[ev]).sum()) * 4
+    print(f"phase 3g: adaptive Bloom of kronecker({SCALE}), s=1.0, k=2: "
+          f"Σ words {total_words} ({total_words * 4} bytes; the dense "
+          f"layout would be n x words_max = {g.n * sk.words_max * 4} bytes), "
+          f"words_max {sk.words_max}, rows by width {hist}; built in "
+          f"{build_s:.3f} s, peak {build_peak} bytes; the pass reads "
+          f"Σ_e (w_u + w_v)·4 = {pair_bytes} bytes", flush=True)
+    require(total_words == int(words.sum()) and sk.offsets.shape == (g.n + 1,),
+            "adaptive layout is not ragged over Σ words")
+    hubs = torch.topk(deg, 8).indices.cpu().numpy()
+    sample = np.unique(np.concatenate([hubs, np.random.default_rng(0).choice(
+        g.n, size=256, replace=False)]))
+    t0 = time.perf_counter()
+    want, offs, _ = AD.build_adaptive_bloom_np(g, 1.0, 2, 0,
+                                               vertices=sample)
+    got = torch.cat([sk.row(int(v)) for v in sample]).cpu().numpy()
+    require(np.array_equal(got.view(np.uint32), want),
+            f"adaptive rows of {sample.size} sampled vertices differ from "
+            "build_adaptive_bloom_np")
+    print(f"  {sample.size} sampled rows (the 8 hubs included, "
+          f"{offs[-1]} words) equal build_adaptive_bloom_np "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    tc = float(AD.adaptive_triangle_count(g, sk))
+    pass_s = time.perf_counter() - t0
+    launches = stream_launches(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    rel, rel_fixed = (tc - tc_exact) / tc_exact, (tc_fixed - tc_exact) / \
+        tc_exact
+    print(f"  adaptive_triangle_count {tc:.9g} in {pass_s:.3f} s, peak "
+          f"{peak} bytes, launches {launches}; against the exact {tc_exact}: "
+          f"relative error {rel:+.6f} (the fixed Bloom of phase 3: "
+          f"{tc_fixed:.9g}, {rel_fixed:+.6f})", flush=True)
+    require(math.isfinite(tc) and tc > 0, f"adaptive TC {tc}")
+    require(set(launches) == {"fused_rows_popcount", "rows/and2"},
+            f"the adaptive pass launched {launches}; only rows/and2 may run")
+    require(peak < g.n * sk.words_max * 4,
+            f"peak {peak} bytes reaches an n x words_max tensor")
+    plan = kernel_plan(g)
+    pairs = torch.cat([g.edges[edge_sample(torch, np, g)],
+                       hub_edge_sample(torch, np, g, hubs=8, per_hub=512)])
+    ones_k, wt = AD.adaptive_pair_ones(sk, pairs, plan)
+    ones_p, _ = AD.adaptive_pair_ones(sk, pairs, plan.with_(use_kernel=False))
+    require(torch.equal(ones_k, ones_p),
+            f"adaptive popcounts: {int((ones_k != ones_p).sum())} of "
+            f"{pairs.shape[0]} sampled edges differ from the plain path")
+    vk = AD.adaptive_pair_cardinalities(sk, pairs, plan)
+    vp = AD.adaptive_pair_cardinalities(sk, pairs,
+                                        plan.with_(use_kernel=False))
+    require(torch.equal(vk, vp), "adaptive estimates differ from the plain "
+            "path's on equal popcounts")
+    print(f"  {pairs.shape[0]} sampled edges (hub edges included, widths "
+          f"{int(wt.min())}..{int(wt.max())} words after folding): kernel "
+          f"popcounts and estimates equal the plain path's", flush=True)
+    # where the pass's time goes: a warm pass unprofiled (its wall), then
+    # one under the profiler (device busy, the popcount kernel's share)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    AD.adaptive_triangle_count(g, sk)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        AD.adaptive_triangle_count(g, sk)
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy_s = sum(e.self_device_time_total for e in device) / 1e6
+    popc_s = sum(e.self_device_time_total for e in device
+                 if "tile_popcount" in e.key) / 1e6
+    print(f"  warm pass {warm_s:.3f} s; under the profiler: device busy "
+          f"{busy_s * 1e3:.1f} ms (idle share {max(0.0, 1 - busy_s / warm_s):.1%}"
+          f" of the unprofiled wall), the dense AND2 {popc_s * 1e3:.1f} ms "
+          f"of it; top kernels:", flush=True)
+    for e in sorted(device, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"    {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x "
+              f"{e.key[:100]}", flush=True)
+    rows_launches = launches.get("rows/and2", 0)
+    del sk
+    torch.cuda.empty_cache()
+    return dict(tc=tc, rel=rel, rel_fixed=rel_fixed, build_s=build_s,
+                pass_s=pass_s, peak=peak, words=total_words, hist=hist,
+                launches=rows_launches, pair_bytes=pair_bytes,
+                warm_s=warm_s, busy_s=busy_s, popc_s=popc_s)
+
+
+def kernel_plan(g):
+    """The engine's default plan for ``g`` (kernels on the card)."""
+    from repro_torch import engine as TE
+
+    return TE.plan_for(g, None)
+
+
+def numpy_candidates(np, indptr, indices, n: int, limit: int):
+    """The link-prediction candidates by a numpy rule: wedges in the
+    reference's order (v ascending, then i < j in v's sorted row, a row in
+    blocks of about 2^20 wedges), pairs that are edges dropped, the first
+    ``limit`` distinct pairs kept (then it stops), sorted: int64 keys
+    ``a·n + b``, and the wedges read."""
+    deg = np.diff(indptr)
+    src = np.repeat(np.arange(n, dtype=np.int64), deg)
+    edges = src * n + indices
+    keys = np.sort(edges[src < indices])
+    seen, read = set(), 0
+    for v in range(n):
+        d = int(deg[v])
+        nb = indices[indptr[v]:indptr[v + 1]].astype(np.int64)
+        i0 = 0
+        while i0 < d - 1:
+            i1, wedges = i0, 0
+            while i1 < d - 1 and wedges < (1 << 20):
+                wedges += d - 1 - i1
+                i1 += 1
+            per_row = d - 1 - np.arange(i0, i1)       # j > i in row i
+            ii = np.repeat(np.arange(i0, i1), per_row)
+            jj = ii + 1 + np.arange(ii.size) - np.repeat(
+                np.cumsum(per_row) - per_row, per_row)
+            key = nb[ii] * n + nb[jj]
+            at = np.minimum(np.searchsorted(keys, key), keys.size - 1)
+            key = key[keys[at] != key]
+            _, firsts = np.unique(key, return_index=True)
+            for kk in key[np.sort(firsts)].tolist():
+                if kk not in seen:
+                    seen.add(kk)
+                    if len(seen) == limit:
+                        return np.sort(np.fromiter(seen, np.int64)), \
+                            read + wedges
+            read += wedges
+            i0 = i1
+    return np.sort(np.fromiter(seen, np.int64, len(seen))), read
+
+
+def linkpred_scores(torch, TE, LP, SK, kernels, sparse, cand, kind: str):
+    """Kernel-path scores of ``cand`` for one sketch kind against the plain
+    path's (integer popcounts or match counts first, then the floats);
+    returns (kernel scoring seconds, launches by form)."""
+    from repro_torch.engine import setexpr
+    from repro_torch.kernels import ops
+
+    sk = SK.build(sparse, kind, 1.0 if kind == "bf" else 0.25, num_hashes=2,
+                  seed=0)
+    plan = TE.plan_for(sparse, sk)
+    if kind == "bf":
+        and2 = setexpr.and_all(*setexpr.rows(2))
+        got = setexpr.compile_expr(and2, use_kernel=True).ones(sk.data, cand)
+        want = setexpr.compile_expr(and2, use_kernel=False).ones(sk.data,
+                                                                 cand)
+    else:
+        got = ops.khash_match_gather(sk.data, cand, sk.n, use_kernel=True)
+        want = ops.khash_match_gather(sk.data, cand, sk.n, use_kernel=False)
+    require(torch.equal(got, want), f"{kind} link-prediction counts differ "
+            "from the plain path's")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    sk_scores = LP.pair_similarity(sparse, cand, "common", sk, plan=plan)
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    launches = stream_launches(kernels)
+    plain = LP.pair_similarity(sparse, cand, "common", sk,
+                               plan=plan.with_(use_kernel=False))
+    require(torch.equal(sk_scores, plain), f"{kind} link-prediction scores "
+            "differ from the plain path's")
+    return score_s, launches
+
+
+def phase_linkpred(torch, np, TG, kernels, g) -> dict:
+    """Phase 3g, link prediction (Listing 5) at the reference's defaults
+    (removed 0.1, seed 0, ``common``): the split and the distance-2
+    candidates at scale 21 against a numpy rule, then ef for the exact,
+    Bloom (s = 1.0) and k-Hash scorers with launches zeroed before and read
+    after, each scorer's kernel path against its plain path; then the
+    Bloom scorer at scale 16, where the ranking decides ef."""
+    from repro_torch import engine as TE
+    from repro_torch.core import sketches as SK
+    from repro_torch.core.algorithms import linkpred as LP
+    from repro_torch.obs.metrics import REGISTRY
+
+    t0 = time.perf_counter()
+    sparse, removed = LP.split_edges(g, 0.1, 0)
+    torch.cuda.synchronize()
+    split_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cand = LP._distance2_candidates(sparse)
+    torch.cuda.synchronize()
+    enum_s = time.perf_counter() - t0
+    wedges = REGISTRY.gauge("linkpred_wedges_read").value
+    t0 = time.perf_counter()
+    want, np_read = numpy_candidates(
+        np, sparse.indptr.cpu().numpy().astype(np.int64),
+        sparse.indices.cpu().numpy().astype(np.int64), sparse.n,
+        2_000_000)
+    np_s = time.perf_counter() - t0
+    got = cand.cpu().numpy().astype(np.int64)
+    require(np.array_equal(got[:, 0] * sparse.n + got[:, 1], want),
+            f"{cand.shape[0]} candidates differ from the numpy rule's "
+            f"{want.size}")
+    print(f"phase 3g: link prediction, kronecker({SCALE}): split "
+          f"{split_s:.2f} s (removed {removed.shape[0]}, sparse m "
+          f"{sparse.m}); {cand.shape[0]} candidates in {enum_s:.3f} s from "
+          f"{wedges} wedges read (numpy rule: {np_read} wedges, {np_s:.1f} "
+          f"s, the same pairs)", flush=True)
+    require(cand.shape[0] == 2_000_000, f"{cand.shape[0]} candidates")
+    out = {"split_s": split_s, "enum_s": enum_s, "wedges": wedges,
+           "candidates": cand.shape[0], "r": removed.shape[0], "ef": {},
+           "launches": {}}
+    for kind in (None, "bf", "kh"):
+        label = kind or "exact"
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        ef = LP.link_prediction_effectiveness(
+            g, sketch_kind=kind, storage_budget=1.0 if kind == "bf" else 0.25)
+        ef_s = time.perf_counter() - t0
+        launches = stream_launches(kernels)
+        line = (f"  {label}: ef {ef:.6f} in {ef_s:.2f} s, launches "
+                f"{launches}")
+        if kind is None:
+            require(not launches, f"exact link prediction launched "
+                    f"{launches}")
+        else:
+            score_s, _ = linkpred_scores(torch, TE, LP, SK, kernels, sparse,
+                                         cand, kind)
+            line += (f"; scoring {cand.shape[0]} candidates {score_s:.3f} s, "
+                     f"kernel counts and scores equal the plain path's")
+        key = {"bf": "gather/and2", "kh": "khash_match_pairs/gather"}.get(
+            kind)
+        require(key is None or launches.get(key, 0) > 0,
+                f"{label} link prediction launched no {key}")
+        out["ef"][label] = ef
+        out["launches"][label] = launches
+        print(line, flush=True)
+    del sparse, cand
+    torch.cuda.empty_cache()
+    g16 = TG.kronecker(LINKPRED_SMALL_SCALE, 16, seed=1, device="cuda")
+    sparse16, removed16 = LP.split_edges(g16, 0.1, 0)
+    n_cand = LP._distance2_candidates(sparse16).shape[0]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    ef16 = LP.link_prediction_effectiveness(g16, sketch_kind="bf",
+                                            storage_budget=1.0)
+    ef16_s = time.perf_counter() - t0
+    launches16 = stream_launches(kernels)
+    ef16_exact = LP.link_prediction_effectiveness(g16)
+    print(f"  kronecker({LINKPRED_SMALL_SCALE}): r {removed16.shape[0]} "
+          f"removed < {n_cand} candidates; bf ef {ef16:.6f} in {ef16_s:.2f} "
+          f"s (launches {launches16}), exact ef {ef16_exact:.6f}",
+          flush=True)
+    require(removed16.shape[0] < n_cand and 0.0 < ef16 <= 1.0,
+            f"scale {LINKPRED_SMALL_SCALE}: ef {ef16}")
+    out.update(ef16=ef16, ef16_exact=ef16_exact, ef16_s=ef16_s,
+               launches16=launches16)
+    return out
+
+
+def dedup_corpus(np):
+    """``DEDUP_DOCS`` originals of 200-2,000 tokens over ``DEDUP_VOCAB``
+    ids, then ``DEDUP_DUPS`` near-duplicates of random originals with 3% of
+    their tokens redrawn (``default_rng(0)``, as examples/dedup_corpus.py
+    plants them); returns (docs, the original of each planted duplicate)."""
+    rng = np.random.default_rng(0)
+    lo, hi = DEDUP_LEN
+    docs = [rng.integers(0, DEDUP_VOCAB, size=rng.integers(lo, hi + 1))
+            .astype(np.int64) for _ in range(DEDUP_DOCS)]
+    sources = rng.choice(DEDUP_DOCS, size=DEDUP_DUPS, replace=False)
+    for i in sources:
+        d = docs[i].copy()
+        idx = rng.choice(len(d), size=max(1, len(d) // 33), replace=False)
+        d[idx] = rng.integers(0, DEDUP_VOCAB, size=len(idx))
+        docs.append(d)
+    return docs, sources
+
+
+def numpy_sketch(np, hash_u32, tokens, k: int, w: int, seed: int = 0):
+    """The reference's k-Hash sketch of one doc, in numpy: uint32[k]."""
+    tokens = np.asarray(tokens, dtype=np.uint32)
+    if len(tokens) < w:
+        sh = hash_u32(tokens, 7)
+    else:
+        sh = np.zeros(len(tokens) - w + 1, dtype=np.uint32)
+        with np.errstate(over="ignore"):
+            for i in range(w):
+                sh = (sh * np.uint32(1000003)) ^ hash_u32(
+                    tokens[i:i + len(sh)], 7 + i)
+    out = np.full(k, 0xFFFFFFFF, dtype=np.uint32)
+    for i in range(k if len(sh) else 0):
+        out[i] = hash_u32(sh, (i + seed * 0x9E3779B9) & 0xFFFFFFFF).min()
+    return out
+
+
+def numpy_dedup(np, sketches, threshold: float, k: int, bands: int):
+    """The reference's banding and keep rule over given sketches, in
+    numpy and Python dicts: (keep, stats)."""
+    n = sketches.shape[0]
+    rpb = max(1, k // bands)
+    buckets = {}
+    for di in range(n):
+        for b in range(bands):
+            band = sketches[di, b * rpb:(b + 1) * rpb]
+            buckets.setdefault((b, band.tobytes()), []).append(di)
+    keep = np.ones(n, dtype=bool)
+    checked, dropped = 0, []
+    for members in buckets.values():
+        for other in members[1:]:
+            anchor = members[0]
+            if not keep[other] or not keep[anchor]:
+                continue
+            checked += 1
+            j = float(np.mean(sketches[anchor] == sketches[other]))
+            if j >= threshold:
+                keep[other] = False
+                dropped.append((anchor, other, j))
+    return keep, {"checked_pairs": checked, "dropped": int((~keep).sum()),
+                  "dropped_pairs": dropped[:32], "k": k, "bands": bands}
+
+
+def phase_dedup(torch, np) -> dict:
+    """Phase 3g, MinHash dedup of a 50,000-doc corpus on the card
+    (threshold 0.7, k = k_for(0.1, 0.01), w = 5), its steps timed by their
+    spans; sketches of sampled docs against numpy, and the keep mask and
+    stats of a 2,000-doc sub-corpus (the first originals and the planted
+    duplicates of those) against the reference's rule in numpy."""
+    from repro_torch.core.hashing import np_hash_u32
+    from repro_torch.data import dedup as DD
+    from repro_torch.obs import trace
+
+    t0 = time.perf_counter()
+    docs, sources = dedup_corpus(np)
+    corpus_s = time.perf_counter() - t0
+    k = DD.k_for(0.1, 0.01)
+    tokens = sum(len(d) for d in docs)
+    trace.clear()
+    trace.enable()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        keep, stats = DD.minhash_dedup(docs, DEDUP_THRESHOLD, k, DEDUP_W,
+                                       device="cuda")
+        dedup_s = time.perf_counter() - t0
+        spans = trace.aggregate()
+        cands = [e["args"].get("candidates") for e in trace.events()
+                 if e["name"] == "dedup.banding"]
+    finally:
+        trace.disable()
+        trace.clear()
+    step = {name: spans.get(f"dedup.{name}", {}).get("total_s", 0.0)
+            for name in ("sketches", "banding", "keep")}
+    planted = int((~keep[DEDUP_DOCS:]).sum())
+    distinct = int((~keep[:DEDUP_DOCS]).sum())
+    print(f"phase 3g: dedup of {len(docs)} docs ({tokens} tokens; corpus "
+          f"built in {corpus_s:.1f} s), k={k} w={DEDUP_W} bands="
+          f"{stats['bands']} threshold {DEDUP_THRESHOLD}: {dedup_s:.2f} s = "
+          + ", ".join(f"{name} {sec:.3f} s" for name, sec in step.items())
+          + f"; {cands[0] if cands else '?'} candidate pairs, "
+          f"{stats['checked_pairs']} checked; dropped {stats['dropped']}: "
+          f"{planted} of {DEDUP_DUPS} planted duplicates, {distinct} "
+          f"originals", flush=True)
+    rng = np.random.default_rng(1)
+    sample = np.sort(rng.choice(len(docs), size=DEDUP_SAMPLED, replace=False))
+    t0 = time.perf_counter()
+    got = DD.document_sketches([docs[i] for i in sample], k, DEDUP_W,
+                               device="cuda")
+    want = np.stack([numpy_sketch(np, np_hash_u32, docs[i], k, DEDUP_W)
+                     for i in sample])
+    require(np.array_equal(got, want), f"dedup sketches of {DEDUP_SAMPLED} "
+            "sampled docs differ from numpy")
+    head = int(DEDUP_CHECKED * 0.9)
+    sub = list(range(head)) + [DEDUP_DOCS + j for j, src in
+                               enumerate(sources) if src < head]
+    sub = [docs[i] for i in sub[:DEDUP_CHECKED]]
+    keep_sub, stats_sub = DD.minhash_dedup(sub, DEDUP_THRESHOLD, k,
+                                           DEDUP_W, device="cuda")
+    sk_sub = DD.document_sketches(sub, k, DEDUP_W, device="cuda")
+    keep_np, stats_np = numpy_dedup(np, sk_sub, DEDUP_THRESHOLD, k,
+                                    stats_sub["bands"])
+    require(np.array_equal(keep_sub, keep_np) and stats_sub == stats_np,
+            f"dedup of the {len(sub)}-doc sub-corpus differs from the numpy "
+            f"rule: {stats_sub['checked_pairs']} / {stats_np['checked_pairs']}"
+            f" checked, {stats_sub['dropped']} / {stats_np['dropped']} "
+            "dropped")
+    print(f"  sketches of {DEDUP_SAMPLED} sampled docs equal numpy's; the "
+          f"{len(sub)}-doc sub-corpus ({len(sub) - head} planted duplicates): "
+          f"keep mask and stats equal the numpy rule's ({stats_np['dropped']}"
+          f" dropped, {stats_np['checked_pairs']} checked; "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    require(planted > 0.9 * DEDUP_DUPS, f"only {planted} of {DEDUP_DUPS} "
+            "planted duplicates dropped")
+    return dict(dedup_s=dedup_s, step=step, planted=planted,
+                distinct=distinct, checked=stats["checked_pairs"],
+                candidates=cands[0] if cands else None, k=k,
+                docs=len(docs), tokens=tokens)
 
 
 def phase_reference(torch, np, TE, TG, sketches):
@@ -2384,8 +3000,14 @@ def main() -> None:
     del sess, mh_sessions, sx
     torch.cuda.empty_cache()
     stream = phase_stream(torch, np, kernels, g)
+    t_3g = time.perf_counter()
+    adaptive = phase_adaptive(torch, np, kernels, g, main_path["tc"],
+                              xp["tc"])
+    lp = phase_linkpred(torch, np, TG, kernels, g)
     del g
     torch.cuda.empty_cache()
+    dd = phase_dedup(torch, np)
+    print(f"phase 3g: {time.perf_counter() - t_3g:.1f} s in all", flush=True)
     g12, exact = phase_reference(torch, np, TE, TG, sketches)
     phase_reference_exact(torch, np, TE, g12, exact)
     phase_reference_minhash(torch, np, TE, g12, exact)
@@ -2412,7 +3034,17 @@ def main() -> None:
           f"{[round(r['delta_s'], 3) for r in stream['rows']]} s, flush "
           f"{[round(r['flush_s'], 3) for r in stream['rows']]} s, "
           f"launches {stream['launches']}, peak {stream['peak']} bytes, "
-          f"{stream['phase_s']:.1f} s"
+          f"{stream['phase_s']:.1f} s, checkpoint "
+          f"{stream['checkpoint']['bytes']} bytes saved in "
+          f"{stream['checkpoint']['save_s']:.2f} s, restored in "
+          f"{stream['checkpoint']['restore_s']:.2f} s; adaptive Bloom "
+          f"(phase 3g) TC {adaptive['tc']:.9g} ({adaptive['rel']:+.6f} vs "
+          f"exact; fixed {adaptive['rel_fixed']:+.6f}) pass "
+          f"{adaptive['pass_s']:.3f} s, {adaptive['launches']} rows/and2 "
+          f"launches; link prediction ef {lp['ef']} (scale "
+          f"{LINKPRED_SMALL_SCALE} bf {lp['ef16']:.6f}); dedup "
+          f"{dd['docs']} docs {dd['dedup_s']:.2f} s, {dd['planted']} of "
+          f"{DEDUP_DUPS} planted dropped"
           + f"; total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # each row: the kernel's launches on the paths that run it, each path
@@ -2501,13 +3133,29 @@ def main() -> None:
          "src/repro/kernels/fused_expr.py:129",
          lc["bf"]["forms"].get("rows/and2", 0)),
     ]
-    rows = [(name, source, replaces, launches + stream_rows.get(name, 0))
+    # phase 3g: the adaptive pass's dense AND2 launches and link
+    # prediction's (scale 21, Bloom and k-Hash scorers; scale 16, Bloom)
+    lpl = lp["launches"]
+    adaptive_rows = {"fused_rows_popcount": adaptive["launches"],
+                     "bf_intersect_pairs": adaptive["launches"]}
+    lp_gather = (lpl["bf"].get("gather/and2", 0)
+                 + lp["launches16"].get("gather/and2", 0))
+    linkpred_rows = {"fused_gather_popcount": lp_gather,
+                     "bf_edge_intersect": lp_gather,
+                     "khash_match_gather": lpl["kh"].get(
+                         "khash_match_pairs/gather", 0)}
+    rows = [(name, source, replaces, launches + stream_rows.get(name, 0)
+             + adaptive_rows.get(name, 0) + linkpred_rows.get(name, 0))
             for name, source, replaces, launches in rows]
     records = [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,
         **({"stream_launches": stream_rows[name]} if name in stream_rows
            else {}),
+        **({"adaptive_launches": adaptive_rows[name]}
+           if name in adaptive_rows else {}),
+        **({"linkpred_launches": linkpred_rows[name]}
+           if name in linkpred_rows else {}),
         "max_abs_err": timing[name]["max_abs_err"],
         "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
         "bound_ms": timing[name]["bound_ms"],

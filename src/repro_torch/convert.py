@@ -52,3 +52,29 @@ def sketch_from_numpy(data, kind: str, num_hashes: int, k: int,
     data = torch.from_numpy(arr.copy()).to(resolve_device(device))
     return SketchSet(data=data, kind=kind, num_hashes=int(num_hashes),
                      k=int(k), seed=int(seed), n=int(n))
+
+
+def adaptive_from_numpy(data, words, num_hashes: int, seed: int,
+                        device: DeviceLike = DEFAULT_DEVICE):
+    """A port :class:`~repro_torch.core.adaptive.AdaptiveBloom` from the
+    reference's ``uint32[n, words_max]`` matrix and its ``words[n]``: row v
+    keeps its first ``words[v]`` words, packed in the ragged layout."""
+    from .core.adaptive import AdaptiveBloom
+
+    arr = np.ascontiguousarray(data)
+    if arr.dtype not in (np.uint32, np.int32):
+        raise ValueError(f"an adaptive Bloom sketch must be uint32 or "
+                         f"int32, got {arr.dtype}")
+    arr = arr.view(np.int32)
+    w = np.asarray(words, dtype=np.int64)
+    n, words_max = arr.shape
+    flat = arr[np.arange(words_max)[None, :] < w[:, None]]
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(w, out=offsets[1:])
+    dev = resolve_device(device)
+    return AdaptiveBloom(
+        data=torch.from_numpy(flat.copy()).to(dev),
+        offsets=torch.from_numpy(offsets).to(dev),
+        words=torch.from_numpy(w.astype(np.int32)).to(dev),
+        num_hashes=int(num_hashes), seed=int(seed), n=int(n),
+        words_max=int(words_max))

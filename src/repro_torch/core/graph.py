@@ -243,6 +243,44 @@ def kronecker(scale: int, edge_factor: int = 16, seed: int = 0,
                            device=device)
 
 
+def barabasi_albert(n: int, m_attach: int = 4, seed: int = 0,
+                    device: DeviceLike = DEFAULT_DEVICE) -> Graph:
+    """Preferential-attachment power-law graph (the reference's host
+    construction and seeded draws)."""
+    resolve_device(device)
+    rng = np.random.default_rng(seed)
+    targets = list(range(m_attach))
+    repeated: list[int] = []
+    edges = []
+    for v in range(m_attach, n):
+        for t in targets:
+            edges.append((v, t))
+        repeated.extend(targets)
+        repeated.extend([v] * m_attach)
+        idx = rng.integers(0, len(repeated), size=m_attach)
+        targets = [repeated[i] for i in idx]
+    return from_edge_array(n, np.asarray(edges, dtype=np.int64),
+                           device=device)
+
+
+def random_bipartite_community(n: int, communities: int, p_in: float,
+                               p_out: float, seed: int = 0,
+                               device: DeviceLike = DEFAULT_DEVICE) -> Graph:
+    """Planted-partition graph: dense communities, sparse cross edges (the
+    reference's seeded draws)."""
+    resolve_device(device)
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, communities, size=n)
+    u = rng.integers(0, n, size=int(6 * n * max(p_in, 1e-6) * n
+                                    / communities) + 4 * n)
+    v = rng.integers(0, n, size=u.shape[0])
+    same = labels[u] == labels[v]
+    keep = np.where(same, rng.random(u.shape[0]) < p_in,
+                    rng.random(u.shape[0]) < p_out)
+    return from_edge_array(n, np.stack([u[keep], v[keep]], axis=1),
+                           device=device)
+
+
 # ----------------------------------------------------------------------------
 # Host helpers
 # ----------------------------------------------------------------------------

@@ -17,9 +17,10 @@ against fresh builds.
   python -m repro_torch.launch.stream --scale 16 --edge-factor 16 --batches 6 --verify
 
 runs on the CUDA device (``--device cpu`` runs the plain PyTorch path).
-Checkpointing (``--checkpoint-dir``, ``--checkpoint-every``, ``--restore``)
-comes with the port of ``checkpoint/store.py``; until then those flags exit. The last line printed is a machine-readable JSON
-summary.
+With ``--checkpoint-dir`` the session is saved every ``--checkpoint-every``
+batches, with the stream parameters; ``--restore`` resumes from the latest
+checkpoint there, onto ``--device``, and refuses flags that would replay a
+different stream. The last line printed is a machine-readable JSON summary.
 """
 from __future__ import annotations
 
@@ -188,12 +189,11 @@ def main(argv=None):
                          "overlap query service on snapshot-isolated views")
     ap.add_argument("--verify", action="store_true",
                     help="check answers against a from-scratch static session")
-    ap.add_argument("--checkpoint-dir", default=None,
-                    help="not ported yet (needs checkpoint/store.py)")
-    ap.add_argument("--checkpoint-every", type=int, default=None,
-                    help="not ported yet (needs checkpoint/store.py)")
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=5)
     ap.add_argument("--restore", action="store_true",
-                    help="not ported yet (needs checkpoint/store.py)")
+                    help="resume from the latest checkpoint in "
+                         "--checkpoint-dir")
     ap.add_argument("--device", default=DEFAULT_DEVICE,
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch path)")
@@ -204,11 +204,8 @@ def main(argv=None):
                     help="embed metric-registry snapshots in the summary")
     args = ap.parse_args(argv)
 
-    if (args.checkpoint_dir or args.restore
-            or args.checkpoint_every is not None):
-        raise SystemExit("--checkpoint-dir/--checkpoint-every/--restore need "
-                         "checkpoint/store.py, which the port does not have "
-                         "yet")
+    if args.restore and not args.checkpoint_dir:
+        raise SystemExit("--restore requires --checkpoint-dir")
     resolve_device(args.device)
     if args.trace:
         trace.enable()
@@ -217,10 +214,24 @@ def main(argv=None):
                                         args.stream_frac, args.seed,
                                         args.device)
     kind = None if args.kind == "exact" else args.kind
-    st = StreamSession(
-        DynamicGraph.from_edges(n, initial, device=args.device), kind=kind,
-        storage_budget=args.budget,
-        policy=ErrorBudgetPolicy(rel_tolerance=args.tolerance))
+    # the stream is regenerated from these parameters on restore: any drift
+    # would replay wrong or duplicate arrival chunks, so they are stored
+    # with every checkpoint and checked here
+    stream_cfg = {"scale": args.scale, "edge_factor": args.edge_factor,
+                  "stream_frac": args.stream_frac, "batches": args.batches,
+                  "seed": args.seed, "kind": args.kind}
+    if args.restore:
+        st = StreamSession.restore(args.checkpoint_dir, device=args.device)
+        if st.extra and st.extra != stream_cfg:
+            raise SystemExit(
+                f"checkpoint stream config {st.extra} does not match the "
+                f"requested flags {stream_cfg}; rerun with matching flags")
+        print(f"restored: version={st.version} n={st.dyn.n} m={st.dyn.m}")
+    else:
+        st = StreamSession(
+            DynamicGraph.from_edges(n, initial, device=args.device),
+            kind=kind, storage_budget=args.budget,
+            policy=ErrorBudgetPolicy(rel_tolerance=args.tolerance))
     # admission policy: the five per-batch queries below auto-flush on the
     # fifth submit (max_batch); max_wait_s keeps a straggler batch from
     # waiting forever under other traffic shapes
@@ -233,8 +244,9 @@ def main(argv=None):
 
     _ = st.session.edge_cardinalities()  # warm the shared pass
     batch_rows = []
-    for b in range(args.batches):
-        # per-batch rng keyed on (seed, b), as the reference draws them
+    for b in range(st.version, args.batches):
+        # per-batch rng keyed on (seed, b), as the reference draws them: a
+        # restored run draws what the uninterrupted run would at batch b
         rng = np.random.default_rng([args.seed + 2, b])
         ins = chunks[b]
         dels = batch_deletes(st, rng, len(ins), args.delete_frac)
@@ -268,11 +280,16 @@ def main(argv=None):
               f"delta={dt_delta*1e3:.1f}ms query={dt_query*1e3:.1f}ms"
               + (f" exact={row['verify']['exact_match']}" if args.verify
                  else ""))
+        if args.checkpoint_dir and (b + 1) % args.checkpoint_every == 0:
+            path = st.save(args.checkpoint_dir, extra=stream_cfg)
+            print(f"      checkpoint -> {path}")
 
     server_stats = server.stats()   # before close(), which drops the cache
     server.close()                  # flush-then-detach
     summary = {"event": "stream_replay", "n": n, "final_m": st.dyn.m,
                "batches": len(batch_rows), "device": str(st.dyn.torch_device),
+               # the TC served after the last batch replayed here
+               "last_tc": batch_rows[-1]["tc"] if batch_rows else None,
                "stream": st.stats(), "server": server_stats,
                # null (not a vacuous true) when no batch was verified
                "verify_all_exact": all(r["verify"]["exact_match"]

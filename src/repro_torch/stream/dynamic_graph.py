@@ -435,6 +435,22 @@ class DynamicGraph:
                    (src * n + graph.indices.to(torch.int64)).cpu().numpy(),
                    device=graph.device)
 
+    @classmethod
+    def from_keys(cls, n: int, edge_keys: np.ndarray, deg: np.ndarray,
+                  device: DeviceLike = DEFAULT_DEVICE) -> "DynamicGraph":
+        """Build from sorted canonical keys and their degrees (a checkpoint's
+        state): the directed keys are derived by one sort on ``device``,
+        and the device mirror from them on first use, as a delta derives
+        them."""
+        dev = resolve_device(device)
+        keys = np.asarray(edge_keys, dtype=np.int64)
+        span = max(int(n), 1)
+        k = torch.from_numpy(keys.copy()).to(dev)
+        lo, hi = k // span, k % span
+        dir_keys = torch.sort(torch.cat([k, hi * n + lo])).values
+        return cls(n, keys, np.asarray(deg, dtype=np.int32),
+                   dir_keys.cpu().numpy(), device=dev)
+
     # ------------------------------------------------------------------
     # views
     # ------------------------------------------------------------------

@@ -19,18 +19,26 @@ exact bytes).
 Publication: each mutation builds the next generation out of place (new
 device tensors, a forked engine session) and publishes it with one
 attribute swap, so a flush holding the previous :class:`ServingView` is
-never torn. Checkpointing (``save``/``restore``) comes with the port of
-``checkpoint/store.py``.
+never torn.
+
+Checkpoints (``save``/``restore``) go through ``checkpoint.store`` in the
+reference's format, without the reference's ``adj`` leaf and ``headroom``
+setting (the port has neither): the edge keys, degrees, sketch and the
+dirty/stale bookkeeping. ``restore`` also reads a checkpoint written by the
+reference's session and ignores its ``adj``.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import threading
 from typing import Optional
 
 import numpy as np
 import torch
 
+from .._device import DEFAULT_DEVICE, DeviceLike
+from ..checkpoint import store
 from ..core.sketches import SketchSet, bloom_membership
 from ..engine.api import (DeviceCarry, EnginePlan, MiningSession,
                           resolve_plan)
@@ -119,6 +127,7 @@ class StreamSession:
         self.version = 0
         self.cards_recomputed = 0
         self.cards_carried = 0
+        self.extra = {}            # restore() fills this from the checkpoint
         self._delta_listeners = []  # serving-tier invalidation subscribers
         # the session's metric home: the traffic meter's registry, so one
         # snapshot carries upload accounting plus anything recorded here
@@ -400,22 +409,106 @@ class StreamSession:
     # snapshot / restore
     # ------------------------------------------------------------------
 
+    def _config(self, extra: Optional[dict] = None) -> dict:
+        cfg = {"kind": None, "extra": extra or {}}
+        if self.maintainer is not None:
+            mt = self.maintainer
+            cfg.update(kind=mt.kind, num_hashes=mt.num_hashes, seed=mt.seed,
+                       words=mt.words, k=mt.k,
+                       policy={"rel_tolerance": mt.policy.rel_tolerance,
+                               "confidence": mt.policy.confidence,
+                               "max_stale": mt.policy.max_stale})
+        return cfg
+
     def save(self, directory: str, step: Optional[int] = None,
              keep: int = 3, extra: Optional[dict] = None) -> str:
-        """Not ported yet: checkpoints go through ``checkpoint/store.py``,
-        the next slice of the port."""
-        raise NotImplementedError(
-            "StreamSession.save needs checkpoint/store.py, which is not "
-            "ported yet (the next slice of the port)")
+        """Atomic snapshot of the dynamic state (edge keys, degrees, sketch
+        and the dirty/stale bookkeeping) via checkpoint.store. ``extra``
+        is a JSON-able dict the caller can check at restore time (e.g. the
+        replay launcher's stream parameters)."""
+        step = self.version if step is None else int(step)
+        # hold the mutation lock: a delta landing mid-save must not tear the
+        # checkpoint across versions (sketch from N+1, edge_keys from N)
+        with self._mutate_lock:
+            return self._save_locked(directory, step, keep, extra)
+
+    def _save_locked(self, directory: str, step: int, keep: int,
+                     extra: Optional[dict]) -> str:
+        tree = {
+            "config": np.frombuffer(
+                json.dumps(self._config(extra)).encode(),
+                dtype=np.uint8).copy(),
+            "n": np.int64(self.dyn.n),
+            "version": np.int64(self.version),
+            "edge_keys": self.dyn.edge_keys,
+            "deg": self.dyn.deg,
+        }
+        if self.maintainer is not None:
+            mt = self.maintainer
+            sketch = mt.sketch.data.cpu().numpy()
+            if mt.kind == "bf":          # the reference's uint32 words
+                sketch = sketch.view(np.uint32)
+            tree.update(sketch=sketch, dirty=mt.dirty, stale=mt.stale,
+                        counters=np.asarray([mt.rows_incremental,
+                                             mt.rows_rebuilt,
+                                             mt.deltas_applied], np.int64))
+        return store.save_checkpoint(directory, step, tree, keep=keep)
 
     @classmethod
     def restore(cls, directory: str, step: Optional[int] = None,
-                plan: Optional[EnginePlan] = None, **plan_kw
-                ) -> "StreamSession":
-        """Not ported yet: see :meth:`save`."""
-        raise NotImplementedError(
-            "StreamSession.restore needs checkpoint/store.py, which is not "
-            "ported yet (the next slice of the port)")
+                plan: Optional[EnginePlan] = None,
+                device: DeviceLike = DEFAULT_DEVICE,
+                **plan_kw) -> "StreamSession":
+        """Resume a session on ``device`` from a :meth:`save` checkpoint
+        (latest step by default) or one the reference's session wrote.
+
+        The graph is rebuilt from the stored edge keys and degrees (its
+        directed keys and device CSR derived, as a delta derives them),
+        the sketch is taken as stored, not rebuilt, and the stored config
+        re-creates the policy. A reference checkpoint's ``adj`` leaf is
+        never read."""
+        if step is None:
+            step = store.latest_step(directory)
+            if step is None:
+                raise FileNotFoundError(f"no checkpoints in {directory}")
+        meta = store.load_meta(directory, step)
+        target = {key: torch.empty(leaf["shape"],
+                                   dtype=store.torch_dtype(leaf["dtype"]),
+                                   device="meta")
+                  for key, leaf in meta["leaves"].items() if key != "adj"}
+        tree = store.restore_checkpoint(directory, step, target,
+                                        device="cpu")
+        cfg = json.loads(tree["config"].numpy().tobytes().decode())
+        dyn = DynamicGraph.from_keys(int(tree["n"]),
+                                     tree["edge_keys"].numpy(),
+                                     tree["deg"].numpy(), device=device)
+        sketch_data = None
+        if cfg["kind"]:
+            raw = tree["sketch"].numpy()
+            if raw.dtype == np.uint32:     # Bloom words as int32 patterns
+                raw = raw.view(np.int32)
+            sketch_data = torch.from_numpy(raw.copy()).to(dyn.torch_device)
+        policy = (ErrorBudgetPolicy(**cfg["policy"])
+                  if cfg.get("policy") else None)
+        self = cls(dyn, kind=cfg["kind"], num_hashes=cfg.get("num_hashes", 2),
+                   seed=cfg.get("seed", 0), words=cfg.get("words") or None,
+                   k=cfg.get("k") or None, policy=policy, plan=plan,
+                   sketch_data=sketch_data, **plan_kw)
+        # the restored session is not shared yet, but version/view swaps
+        # are mutations all the same: hold the lock like every mutator
+        with self._mutate_lock:
+            self.version = int(tree["version"])
+            self.extra = cfg.get("extra") or {}
+            if self.maintainer is not None:
+                mt = self.maintainer
+                mt.dirty = tree["dirty"].numpy().astype(bool)
+                mt.stale = tree["stale"].numpy().astype(np.int64)
+                mt.rows_incremental, mt.rows_rebuilt, mt.deltas_applied = (
+                    int(x) for x in tree["counters"])
+            # __init__ published a view stamped version 0; re-publish so
+            # the serving view carries the restored version
+            self._publish_view_locked()
+        return self
 
 
 def stream_session(graph_or_dyn, kind: Optional[str] = "bf",

@@ -2,7 +2,9 @@
 
 * Importing ``repro_torch`` and every submodule loads neither ``jax`` nor
   the reference package ``repro`` (checked in a fresh interpreter).
-* Entry points default to ``device="cuda"`` and raise without a GPU.
+* Entry points default to ``device="cuda"`` and raise without a GPU
+  (those of the tenth slice too: generators, checkpoint restores, dedup,
+  the ragged adaptive converter and the launcher's ``--restore``).
 * ``use_kernel=True`` with CPU tensors raises.
 * A missing nvcc raises a build error instead of returning a fallback.
 * ``chip_smoke.py`` fails without a GPU, and outside the checkout.
@@ -76,6 +78,51 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     with pytest.raises(RuntimeError, match="cuda"):
         mine.main(["--scale", "6", "--algos", "localcluster", "--exact"])
     assert TE.session(g, "bf", device="cpu").plan.use_kernel is False
+
+
+def test_tenth_slice_entry_points_need_a_gpu(no_cuda, tmp_path):
+    """The generators, the checkpoint restore (store and stream), the
+    ragged converter, dedup and the launcher's --restore raise without a
+    GPU unless given device='cpu'; the adaptive Bloom and link prediction
+    run where their graph lives (a CPU graph here)."""
+    import numpy as np
+
+    from repro_torch import convert
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.core import adaptive
+    from repro_torch.core.algorithms import linkpred
+    from repro_torch.data import dedup
+    from repro_torch.launch import stream as launcher
+    from repro_torch.stream import DynamicGraph, StreamSession
+
+    for call in (lambda: TG.barabasi_albert(50, 3, seed=1),
+                 lambda: TG.random_bipartite_community(50, 2, 0.2, 0.01),
+                 lambda: dedup.document_sketches([np.arange(9)], 4),
+                 lambda: dedup.minhash_dedup([np.arange(9)], k=4),
+                 lambda: convert.adaptive_from_numpy(
+                     np.zeros((2, 2), np.uint32), [2, 2], 1, 0),
+                 lambda: DynamicGraph.from_keys(3, np.array([1]),
+                                                np.array([1, 1, 0]))):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    save_checkpoint(str(tmp_path / "t"), 1, {"x": np.ones(3)})
+    with pytest.raises(RuntimeError, match="cuda"):
+        restore_checkpoint(str(tmp_path / "t"), 1, {"x": np.ones(3)})
+    assert restore_checkpoint(str(tmp_path / "t"), 1, {"x": np.ones(3)},
+                              device="cpu")["x"].device.type == "cpu"
+    st = StreamSession(DynamicGraph.from_edges(4, [[0, 1], [1, 2]],
+                                               device="cpu"), "bf")
+    st.save(str(tmp_path / "s"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        StreamSession.restore(str(tmp_path / "s"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        launcher.main(["--scale", "6", "--restore", "--checkpoint-dir",
+                       str(tmp_path / "s")])
+    g = TG.kronecker(6, 4, seed=1, device="cpu")
+    sk = adaptive.build_adaptive_bloom(g, 0.5)
+    assert sk.data.device.type == "cpu"
+    assert float(adaptive.adaptive_triangle_count(g, sk)) > 0
+    assert 0.0 <= linkpred.link_prediction_effectiveness(g) <= 1.0
 
 
 def test_use_kernel_on_cpu_tensors_raises():

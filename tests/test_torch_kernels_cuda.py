@@ -765,3 +765,131 @@ def test_from_edge_array_on_the_card_equals_the_cpu(cuda):
     for name in ("indptr", "indices", "deg", "edges"):
         assert torch.equal(getattr(cpu, name), getattr(card, name).cpu())
     assert (cpu.m, cpu.d_max) == (card.m, card.d_max)
+
+
+def test_adaptive_pass_on_the_card_equals_the_cpu(cuda):
+    """The adaptive Bloom built on the card has the CPU build's words and
+    rows; its pair pass launches only the dense AND2 and gives the CPU's
+    popcounts (integers, equal) and estimates (equal: the same float32
+    operations on equal integers, up to difference 2's rtol 1e-6)."""
+    import numpy as np
+
+    from repro_torch.core import adaptive
+
+    out = {}
+    for dev in ("cpu", cuda):
+        g = TG.kronecker(10, 16, seed=2, device=dev)
+        sk = adaptive.build_adaptive_bloom(g, 1.0, num_hashes=2, seed=1)
+        fused_expr.reset_launch_counts()
+        ones, wt = adaptive.adaptive_pair_ones(sk, g.edges)
+        forms = dict(fused_expr.FORM_LAUNCHES)
+        vals = adaptive.adaptive_pair_cardinalities(sk, g.edges)
+        out[str(dev)] = (sk.data.cpu(), sk.offsets.cpu(), ones.cpu(),
+                         wt.cpu(), vals.cpu().numpy(), forms,
+                         float(adaptive.adaptive_triangle_count(g, sk)))
+    cpu, card = out["cpu"], out[str(cuda)]
+    for a, b in zip(cpu[:4], card[:4]):
+        assert torch.equal(a, b)
+    assert np.allclose(card[4], cpu[4], rtol=1e-6, atol=0)
+    assert card[6] == pytest.approx(cpu[6], rel=1e-6)
+    assert not cpu[5] and set(card[5]) == {"rows/and2"}
+
+
+def test_link_prediction_on_the_card_equals_the_cpu(cuda):
+    """Candidates (identical, with hub rows cut across pieces too), the
+    Bloom and k-Hash scorers' counts (identical) and ef (equal) on the
+    card and on the CPU; the card launches the gather forms."""
+    import numpy as np
+
+    from repro_torch.core import sketches
+    from repro_torch.core.algorithms import linkpred
+    from repro_torch.kernels import mh_intersect
+
+    out = {}
+    for dev in ("cpu", cuda):
+        g = TG.kronecker(9, 12, seed=4, device=dev)
+        sparse, removed = linkpred.split_edges(g, 0.1, 0)
+        cand = linkpred._distance2_candidates(sparse)
+        small = linkpred._distance2_candidates(sparse, limit=1000)
+        fused_expr.reset_launch_counts()
+        mh_intersect.reset_launch_counts()
+        ef = {kind: linkpred.link_prediction_effectiveness(
+            g, sketch_kind=kind, storage_budget=0.5) for kind in
+            (None, "bf", "kh")}
+        forms = {**fused_expr.FORM_LAUNCHES, **mh_intersect.FORM_LAUNCHES}
+        sk = sketches.build(sparse, "kh", 0.5, seed=0)
+        counts = ops.khash_match_gather(sk.data, cand, sk.n)
+        out[str(dev)] = (cand.cpu(), small.cpu(), removed, ef, forms,
+                         counts.cpu())
+    cpu, card = out["cpu"], out[str(cuda)]
+    assert torch.equal(cpu[0], card[0]) and torch.equal(cpu[1], card[1])
+    assert np.array_equal(cpu[2], card[2]) and torch.equal(cpu[5], card[5])
+    assert cpu[3] == card[3]
+    assert not cpu[4] and card[4].get("gather/and2", 0) > 0 \
+        and card[4].get("khash_match_pairs/gather", 0) > 0
+
+
+def test_dedup_on_the_card_equals_the_cpu(cuda):
+    """Sketches, keep mask and stats of a corpus with planted
+    near-duplicates, empty and short docs: identical on card and CPU."""
+    import numpy as np
+
+    from repro_torch.data import dedup
+
+    rng = np.random.default_rng(0)
+    docs = [rng.integers(0, 5000, size=rng.integers(200, 800))
+            for _ in range(40)]
+    for i in rng.choice(40, size=15, replace=False):
+        d = docs[i].copy()
+        idx = rng.choice(len(d), size=max(1, len(d) // 33), replace=False)
+        d[idx] = rng.integers(0, 5000, size=len(idx))
+        docs.append(d)
+    docs += [np.zeros(0, np.int64), np.array([3, 4]), np.array([3, 4])]
+    got = {str(dev): (dedup.document_sketches(docs, 265, device=dev),
+                      dedup.minhash_dedup(docs, 0.7, 265, device=dev))
+           for dev in ("cpu", cuda)}
+    cpu, card = got["cpu"], got[str(cuda)]
+    assert np.array_equal(cpu[0], card[0])
+    assert np.array_equal(cpu[1][0], card[1][0]) and cpu[1][1] == card[1][1]
+    assert card[1][1]["dropped"] >= 15
+
+
+def test_stream_restore_on_the_card_equals_the_cpu(cuda, tmp_path):
+    """A Bloom stream saved on the CPU restores on the card (and back):
+    the same edge keys, degrees, CSR, sketch rows and bookkeeping, and
+    after one more delta on each, the same rows and integer answers."""
+    import numpy as np
+
+    from repro_torch.stream import DynamicGraph, ErrorBudgetPolicy, \
+        StreamSession
+
+    g = TG.kronecker(10, 16, seed=1, device="cpu")
+    edges = g.edges.numpy().astype(np.int64)
+    st = StreamSession(DynamicGraph.from_edges(g.n, edges[:9000],
+                                               device="cpu"), "bf",
+                       storage_budget=1.0, policy=ErrorBudgetPolicy(50.0))
+    rng = np.random.default_rng(3)
+    st.apply_delta(edges[9000:9500], st.dyn.edge_array()[:40])
+    st.save(str(tmp_path))
+    card = StreamSession.restore(str(tmp_path), device=cuda)
+    cpu = StreamSession.restore(str(tmp_path), device="cpu")
+    for s in (card, cpu):
+        s.session.edge_cardinalities()
+        s.apply_delta(edges[9500:], s.dyn.edge_array()[::97])
+    assert card.version == cpu.version == 2
+    assert np.array_equal(card.dyn.edge_keys, cpu.dyn.edge_keys)
+    for f in ("indptr", "indices", "deg", "edges"):
+        assert torch.equal(getattr(card.graph, f).cpu(),
+                           getattr(cpu.graph, f))
+    assert torch.equal(card.sketch.data.cpu(), cpu.sketch.data)
+    assert np.array_equal(card.maintainer.dirty, cpu.maintainer.dirty)
+    assert card.maintainer.stats() == cpu.maintainer.stats()
+    pairs = rng.integers(0, g.n, (64, 2)).astype(np.int32)
+    ones = [TE.tuple_cardinality_ones(s.sketch, torch.from_numpy(pairs).to(
+        s.dyn.torch_device), s.session.plan).cpu() for s in (card, cpu)]
+    assert torch.equal(*ones)
+    assert float(card.triangle_count()) == pytest.approx(
+        float(cpu.triangle_count()), rel=1e-6)
+    card.save(str(tmp_path / "back"))
+    again = StreamSession.restore(str(tmp_path / "back"), device="cpu")
+    assert torch.equal(again.sketch.data, cpu.sketch.data)

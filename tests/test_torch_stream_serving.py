@@ -442,21 +442,25 @@ def test_launcher_cpu_verify():
                                         "tc": 2}
 
 
-def test_launcher_needs_a_gpu_unless_told_cpu(monkeypatch):
+def test_launcher_needs_a_gpu_unless_told_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         TL.main(["--scale", "6", "--batches", "1"])
-    with pytest.raises(SystemExit, match="checkpoint"):
-        TL.main(["--scale", "6", "--device", "cpu", "--restore",
-                 "--checkpoint-dir", "ck"])
-    with pytest.raises(SystemExit, match="checkpoint"):
-        TL.main(["--scale", "6", "--device", "cpu", "--checkpoint-every",
-                 "2"])
+    with pytest.raises(SystemExit, match="--restore requires "
+                       "--checkpoint-dir"):
+        TL.main(["--scale", "6", "--device", "cpu", "--restore"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        TL.main(["--scale", "6", "--restore", "--checkpoint-dir",
+                 str(tmp_path)])
     with pytest.raises(RuntimeError, match="cuda"):
         DynamicGraph.from_edges(4, [[0, 1]])
     st = StreamSession(DynamicGraph.from_edges(4, [[0, 1]], device=CPU))
-    with pytest.raises(NotImplementedError, match="checkpoint/store.py"):
-        st.save("ck")
+    path = st.save(str(tmp_path / "ck"))
+    assert path.endswith("step_00000000")
+    with pytest.raises(RuntimeError, match="cuda"):
+        StreamSession.restore(str(tmp_path / "ck"))
+    back = StreamSession.restore(str(tmp_path / "ck"), device=CPU)
+    assert np.array_equal(back.dyn.edge_keys, st.dyn.edge_keys)
 
 
 # ---------------------------------------------------------------------------
