@@ -133,6 +133,21 @@ Phases, each printed as it runs:
      candidates, duplicates dropped; sketches of 200 sampled docs equal to
      numpy's and a 2,000-doc sub-corpus's keep mask and stats equal to the
      reference's rule run in numpy.
+  3h. The sharded mining path on the phase-3 graph, over a process group
+     of world size 1 (NCCL, ``file://`` store in a temporary directory,
+     destroyed at the end) and its ("data", "model") = (1, 1) mesh:
+     ``launch.mine.mine(g, mesh)`` at budget 0.25 with its launches zeroed
+     just before and read just after (only ``gather/and2``, one per
+     chunk), its rows (``build_sketches_distributed``) equal to
+     ``build_bloom`` and its estimate within rtol 1e-5 of the budget-0.25
+     session's TC; ``sum_edge_cardinalities`` with ``shard_edges=True``
+     under ``use_rules(mesh)`` on an s = 1.0 session equal to the local
+     fold's float32 bits. Then R = 2, 4 and 8 ranks in one process (NCCL
+     takes one rank per GPU): each rank's block partial through
+     ``shard_edge_cardinalities`` within its fold bound of the float64
+     sum of the block's per-edge estimates, their sum within twice the
+     bound of the local fold, and the vertex-range builds, concatenated,
+     equal to ``build_bloom``.
   4. Where the time goes: a warm Bloom pass (and the [T, k] gather
      kernel's time per launch in it), a Bloom sketch build, warm k-Hash
      and 1-Hash-naive passes, the scale-21 4-clique pass, the exact
@@ -183,6 +198,9 @@ DEDUP_DOCS, DEDUP_DUPS, DEDUP_LEN, DEDUP_VOCAB = 45_000, 5_000, (200, 2000), \
     50_257
 DEDUP_THRESHOLD, DEDUP_W = 0.7, 5
 DEDUP_CHECKED, DEDUP_SAMPLED = 2_000, 200
+#: phase 3h: rank counts whose shards are computed one after another in
+#: one process (NCCL takes one rank per GPU, and the machine has one)
+SHARD_RANKS = (2, 4, 8)
 
 #: the repo's prefill_32k attention shapes (src/repro/configs/):
 #: name -> (batch, seq, heads, kv heads, head dim, window)
@@ -2607,6 +2625,156 @@ def numpy_dedup(np, sketches, threshold: float, k: int, bands: int):
                   "dropped_pairs": dropped[:32], "k": k, "bands": bands}
 
 
+def fold_rtol(chunks: int) -> float:
+    """Relative bound on a float32 fold of ``chunks`` chunk sums of
+    non-negative values: one rounding per add of the fold, plus 64 for
+    each chunk's ``torch.sum`` (its per-thread runs and tree levels over
+    at most 65,536 values), 2^-24 each."""
+    return (chunks + 64) * 2.0 ** -24
+
+
+def phase_sharded(torch, TE, kernels, g) -> dict:
+    """Phase 3h: the sharded mining path on the card at world size 1."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.spawn import init_group
+    from repro_torch.launch import mesh as launch_mesh
+
+    t_phase = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="pg_sharded_")
+    init_group("file://" + str(Path(store) / "store"), 1, 0, "cuda", 60.0)
+    try:
+        mesh = launch_mesh.make_host_mesh(1, 1, device="cuda")
+        print(f"phase 3h: process group of world size 1 "
+              f"({dist.get_backend()}), mesh "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} up in "
+              f"{time.perf_counter() - t_phase:.2f} s", flush=True)
+        out = sharded_checks(torch, TE, kernels, g, mesh)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 3h: {out['phase_s']:.1f} s in all (scaling over several "
+          "GPUs is not measured: one card)", flush=True)
+    return out
+
+
+def sharded_checks(torch, TE, kernels, g, mesh) -> dict:
+    """Phase 3h's checks over the world-size-1 NCCL mesh ``mesh``."""
+    from repro_torch.core import sketches as SK
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mine as LM
+
+    m = g.m
+    # mine(): the launch counts zeroed just before and read just after
+    kernels.reset_launch_counts()
+    out = LM.mine(g, mesh, device="cuda")
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    forms = dict(kernels.fused_expr.FORM_LAUNCHES)
+    words = out["words"]
+    chunk = TE.plan_for(g, SK.SketchSet(
+        data=torch.empty((g.n, words), dtype=torch.int32, device="cuda"),
+        kind="bf", num_hashes=2, k=0, seed=0, n=g.n)).edge_chunk
+    expected = math.ceil(m / chunk)
+    print(f"phase 3h: mine(): words={words} build {out['build_s']:.3f} s "
+          f"mine {out['mine_s']:.3f} s TC={out['tc_estimate']:.9g} launches "
+          f"{launches} by form {forms}", flush=True)
+    require(out["devices"] == 1 and forms == {"gather/and2": expected}
+            and launches == {"fused_gather_popcount": expected},
+            f"mine() launched {launches} by form {forms}; expected only "
+            f"{expected} gather/and2 launches (one per {chunk}-edge chunk)")
+    rows = LM.build_sketches_distributed(g, mesh, words, 2, 0)
+    bloom = SK.build_bloom(g, words, 2, 0)
+    require(torch.equal(rows, bloom), "build_sketches_distributed rows "
+            "differ from build_bloom")
+    sess25 = TE.session(g, "bf", storage_budget=0.25, device="cuda")
+    require(sess25.sketch.data.shape[1] == words
+            and torch.equal(sess25.sketch.data, bloom),
+            "the budget-0.25 session's sketch differs from mine()'s")
+    tc_sess = float(sess25.triangle_count())
+    rel = abs(out["tc_estimate"] - tc_sess) / tc_sess
+    require(rel <= 1e-5, f"mine() TC {out['tc_estimate']} vs session TC "
+            f"{tc_sess}: rel {rel:.3g} > 1e-5")
+    print(f"  rows equal build_bloom ({rows.numel() * 4} bytes); the "
+          f"session's TC {tc_sess:.9g} (torch.sum of the per-edge map) is "
+          f"{rel:.3g} off mine()'s sharded fold (rtol 1e-5)", flush=True)
+    del sess25, rows
+
+    # the engine's sharded fold on the phase-3 session (s = 1.0)
+    sess = TE.session(g, "bf", storage_budget=1.0, device="cuda")
+    plan = sess.plan
+    local = TE.sum_edge_cardinalities(g, sess.sketch, plan)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with sharding.use_rules(mesh):
+        sharded = TE.sum_edge_cardinalities(g, sess.sketch,
+                                            plan.with_(shard_edges=True))
+    fold_s = time.perf_counter() - t0
+    fold_forms = dict(kernels.fused_expr.FORM_LAUNCHES)
+    chunks = math.ceil(m / plan.edge_chunk)
+    require(int(sharded.view(torch.int32)) == int(local.view(torch.int32)),
+            f"sharded fold {float(sharded)!r} vs local fold "
+            f"{float(local)!r}: float32 bits differ")
+    require(fold_forms == {"gather/and2": chunks}, f"sharded fold launched "
+            f"{fold_forms}, expected {chunks} gather/and2")
+    print(f"phase 3h: sharded fold under use_rules (s=1.0, words="
+          f"{sess.sketch.data.shape[1]}, edge_chunk={plan.edge_chunk}, "
+          f"degree_order={plan.degree_order}): {float(sharded)!r} = the "
+          f"local fold's float32 bits; {fold_s:.3f} s, {fold_forms}",
+          flush=True)
+
+    # R > 1 ranks, in one process: each block's partial through the
+    # function the rank calls, held to the float64 sum of the block's
+    # per-edge estimates; their sum to the local fold
+    edges = (TE.order_edges_by_hub(g, g.edges)[0] if plan.degree_order
+             else g.edges)
+    fn = TE.pair_cardinality_fn(g, sess.sketch, plan)
+    arithmetic = {}
+    for ranks in SHARD_RANKS:
+        t0 = time.perf_counter()
+        partials, worst = [], 0.0
+        for r in range(ranks):
+            part = TE.shard_edge_cardinalities(g, sess.sketch, plan, r,
+                                               ranks)
+            start, stop = TE.edge_shard(m, ranks, r, plan.edge_chunk)
+            exact = sum(float(torch.sum(fn(edges[s:min(stop, s + plan
+                                                       .edge_chunk)]),
+                                        dtype=torch.float64))
+                        for s in range(start, stop, plan.edge_chunk))
+            tol = fold_rtol(math.ceil((stop - start) / plan.edge_chunk))
+            err = abs(float(part) - exact) / max(exact, 1e-30)
+            require(err <= tol, f"R={ranks} rank {r}: partial "
+                    f"{float(part)!r} vs float64 {exact!r} (rel {err:.3g} > "
+                    f"{tol:.3g})")
+            worst = max(worst, err)
+            partials.append(float(part))
+        total = math.fsum(partials)
+        err_total = abs(total - float(local)) / float(local)
+        require(err_total <= 2 * fold_rtol(chunks),
+                f"R={ranks}: sum of partials {total!r} vs local fold "
+                f"{float(local)!r} (rel {err_total:.3g})")
+        lo_hi = [LM.vertex_range(g.n, ranks, r) for r in range(ranks)]
+        built = torch.cat([SK.build_bloom_range(g, words, lo, hi, 2, 0)
+                           for lo, hi in lo_hi])
+        require(torch.equal(built, bloom), f"R={ranks}: vertex-range "
+                "builds differ from build_bloom")
+        arithmetic[ranks] = dict(rel_total=err_total, worst_partial=worst,
+                                 seconds=time.perf_counter() - t0)
+        print(f"  R={ranks}: {ranks} edge blocks of "
+              f"{TE.edge_shard(m, ranks, 0, plan.edge_chunk)[1]} edges; "
+              f"partials within {worst:.3g} of their float64 sums (bound "
+              f"{fold_rtol(chunks):.3g}), their sum {err_total:.3g} off the "
+              f"local fold (bound {2 * fold_rtol(chunks):.3g}); vertex "
+              f"blocks of {lo_hi[0][1]} rows equal build_bloom; "
+              f"{arithmetic[ranks]['seconds']:.2f} s", flush=True)
+    mine_launches = forms["gather/and2"]
+    fold_launches = fold_forms["gather/and2"]
+    return dict(mine=out, launches=mine_launches + fold_launches,
+                mine_launches=mine_launches, fold_launches=fold_launches,
+                fold_s=fold_s,
+                arithmetic=arithmetic)
+
+
 def phase_dedup(torch, np) -> dict:
     """Phase 3g, MinHash dedup of a 50,000-doc corpus on the card
     (threshold 0.7, k = k_for(0.1, 0.01), w = 5), its steps timed by their
@@ -3004,10 +3172,11 @@ def main() -> None:
     adaptive = phase_adaptive(torch, np, kernels, g, main_path["tc"],
                               xp["tc"])
     lp = phase_linkpred(torch, np, TG, kernels, g)
-    del g
-    torch.cuda.empty_cache()
     dd = phase_dedup(torch, np)
     print(f"phase 3g: {time.perf_counter() - t_3g:.1f} s in all", flush=True)
+    sharded = phase_sharded(torch, TE, kernels, g)
+    del g
+    torch.cuda.empty_cache()
     g12, exact = phase_reference(torch, np, TE, TG, sketches)
     phase_reference_exact(torch, np, TE, g12, exact)
     phase_reference_minhash(torch, np, TE, g12, exact)
@@ -3044,7 +3213,12 @@ def main() -> None:
           f"launches; link prediction ef {lp['ef']} (scale "
           f"{LINKPRED_SMALL_SCALE} bf {lp['ef16']:.6f}); dedup "
           f"{dd['docs']} docs {dd['dedup_s']:.2f} s, {dd['planted']} of "
-          f"{DEDUP_DUPS} planted dropped"
+          f"{DEDUP_DUPS} planted dropped; sharded (phase 3h, world size 1) "
+          f"mine() words {sharded['mine']['words']} build "
+          f"{sharded['mine']['build_s']:.3f} s mine "
+          f"{sharded['mine']['mine_s']:.3f} s, {sharded['mine_launches']} + "
+          f"{sharded['fold_launches']} gather/and2 launches (mine, sharded "
+          f"fold), {sharded['phase_s']:.1f} s"
           + f"; total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # each row: the kernel's launches on the paths that run it, each path
@@ -3144,8 +3318,12 @@ def main() -> None:
                      "bf_edge_intersect": lp_gather,
                      "khash_match_gather": lpl["kh"].get(
                          "khash_match_pairs/gather", 0)}
+    # phase 3h: mine() and the sharded fold at world size 1 (AND2 gather)
+    sharded_rows = {"fused_gather_popcount": sharded["launches"],
+                    "bf_edge_intersect": sharded["launches"]}
     rows = [(name, source, replaces, launches + stream_rows.get(name, 0)
-             + adaptive_rows.get(name, 0) + linkpred_rows.get(name, 0))
+             + adaptive_rows.get(name, 0) + linkpred_rows.get(name, 0)
+             + sharded_rows.get(name, 0))
             for name, source, replaces, launches in rows]
     records = [{
         "name": name, "route": "cuda", "source": source,
@@ -3156,6 +3334,8 @@ def main() -> None:
            if name in adaptive_rows else {}),
         **({"linkpred_launches": linkpred_rows[name]}
            if name in linkpred_rows else {}),
+        **({"sharded_launches": sharded_rows[name]}
+           if name in sharded_rows else {}),
         "max_abs_err": timing[name]["max_abs_err"],
         "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
         "bound_ms": timing[name]["bound_ms"],

@@ -15,9 +15,9 @@ Python numbers; a dtype numpy cannot hold (bfloat16) raises.
 Fault-tolerance contract:
   * a crash mid-save never corrupts the latest checkpoint (tmp dir + rename)
   * ``keep`` most-recent checkpoints are retained (bounded disk)
-  * restore places every leaf on the caller's device, whatever device
-    saved it (the reference re-places with shardings; that waits for the
-    port's distributed slice)
+  * restore accepts another device or mesh than the one that saved:
+    leaves are loaded as host arrays and placed on the caller's device,
+    or spread over a mesh by the caller's shardings (elastic restore)
   * AsyncCheckpointer copies to the host first, then writes in a thread,
     one write in flight; an error surfaces on the next ``wait()``
 """
@@ -39,21 +39,22 @@ _SEP = "__"
 _LEAF_TYPES = (torch.Tensor, np.ndarray, np.generic, bool, int, float)
 
 
-def _walk(tree, path: Tuple[str, ...] = ()) -> List[Tuple[str, Any]]:
+def _walk(tree, path: Tuple[str, ...] = (),
+          leaf_types: tuple = _LEAF_TYPES) -> List[Tuple[str, Any]]:
     """(key, leaf) pairs of ``tree`` in the reference's leaf order."""
     if tree is None:
         return []
     if isinstance(tree, dict):
         out = []
         for k in sorted(tree):
-            out += _walk(tree[k], path + (str(k),))
+            out += _walk(tree[k], path + (str(k),), leaf_types)
         return out
     if isinstance(tree, (list, tuple)):
         out = []
         for i, sub in enumerate(tree):
-            out += _walk(sub, path + (f"idx{i}",))
+            out += _walk(sub, path + (f"idx{i}",), leaf_types)
         return out
-    if isinstance(tree, _LEAF_TYPES):
+    if isinstance(tree, leaf_types):
         return [(_SEP.join(path), tree)]
     raise TypeError(f"checkpoint leaf of unsupported type "
                     f"{type(tree).__name__} at {_SEP.join(path)!r}")
@@ -146,31 +147,45 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def restore_checkpoint(directory: str, step: int, target_tree,
-                       device: Optional[DeviceLike] = None):
+                       shardings=None, device: Optional[DeviceLike] = None):
     """Restore step ``step`` into the structure of ``target_tree``.
 
     Target leaves may be tensors, numpy arrays or ``torch.empty(shape,
     dtype=..., device="meta")`` placeholders; each restored leaf is a
-    tensor cast to the target's dtype, on ``device``. With ``device``
-    None a leaf goes where its target tensor lives, and a numpy or meta
-    target to the default device (CUDA: pass ``device="cpu"`` without
-    one).
+    tensor cast to the target's dtype. ``shardings`` is an optional tree
+    of ``distributed.sharding.NamedSharding`` (or None) leaves in the
+    target's structure, e.g. from ``sharding_for_tree``: a leaf with one
+    becomes a DTensor spread over its mesh (``distribute_tensor`` with its
+    placements, on the mesh's device type; every rank of the mesh calls
+    this). A leaf without one goes to ``device``; with ``device`` None,
+    where its target tensor lives, and a numpy or meta target to the
+    default device (CUDA: pass ``device="cpu"`` without one).
     """
+    from ..distributed.sharding import NamedSharding
+
     path = os.path.join(directory, f"step_{step:08d}")
     fixed = None if device is None else resolve_device(device)
+    placed = dict(_walk(shardings, leaf_types=(NamedSharding,)))
 
     def load(key: str, target):
         arr = np.load(os.path.join(path, key + ".npy"))
+        if not arr.flags.c_contiguous:
+            arr = arr.copy(order="C")
+        sh = placed.get(key)
         if isinstance(target, torch.Tensor):
             want = target.dtype
-            dev = fixed or (resolve_device(DEFAULT_DEVICE) if target.is_meta
-                            else target.device)
+            dev = target.device if not target.is_meta else None
         else:
             want = torch_dtype(str(getattr(target, "dtype",
                                            np.asarray(target).dtype)))
-            dev = fixed or resolve_device(DEFAULT_DEVICE)
-        if not arr.flags.c_contiguous:
-            arr = arr.copy(order="C")
+            dev = None
+        if sh is not None:
+            from torch.distributed.tensor import distribute_tensor
+
+            full = torch.from_numpy(arr).to(
+                device=resolve_device(sh.mesh.device_type), dtype=want)
+            return distribute_tensor(full, sh.mesh, sh.placements)
+        dev = fixed or dev or resolve_device(DEFAULT_DEVICE)
         return torch.from_numpy(arr).to(device=dev, dtype=want)
 
     return _rebuild(target_tree, load)

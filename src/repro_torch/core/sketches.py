@@ -156,18 +156,28 @@ def build_bloom(graph: Graph, words: int, num_hashes: int = 2, seed: int = 0,
     stays bounded at any graph size; a row of higher degree gets a chunk
     of its own.
     """
-    n = graph.n
+    return build_bloom_range(graph, words, 0, graph.n, num_hashes, seed,
+                             chunk_bits)
+
+
+def build_bloom_range(graph: Graph, words: int, start: int, stop: int,
+                      num_hashes: int = 2, seed: int = 0,
+                      chunk_bits: int = _CHUNK_BITS) -> torch.Tensor:
+    """The Bloom rows of vertices [start, stop): int32[stop - start, words],
+    equal to ``build_bloom(...)[start:stop]``, built in the same bounded
+    chunks over that range of the CSR."""
     total_bits = words * 32
-    out = torch.empty((n, words), dtype=torch.int32, device=graph.device)
-    if n == 0:
+    out = torch.empty((stop - start, words), dtype=torch.int32,
+                      device=graph.device)
+    if stop <= start:
         return out
-    indptr = graph.indptr.cpu().numpy().astype(np.int64)
+    indptr = graph.indptr[start:stop + 1].cpu().numpy().astype(np.int64)
     entry_cap = max(1, chunk_bits // (4 * max(num_hashes, 1)))
     row_cap = max(1, chunk_bits // total_bits)
-    for start, stop in _row_chunks(indptr, row_cap, entry_cap):
-        out[start:stop] = bloom_rows(
-            graph.indptr[start:stop + 1],
-            graph.indices[int(indptr[start]):int(indptr[stop])],
+    for lo, hi in _row_chunks(indptr, row_cap, entry_cap):
+        out[lo:hi] = bloom_rows(
+            graph.indptr[start + lo:start + hi + 1],
+            graph.indices[int(indptr[lo]):int(indptr[hi])],
             words, num_hashes, seed)
     return out
 

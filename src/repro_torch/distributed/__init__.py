@@ -1,0 +1,10 @@
+"""Distribution over ranks of ``torch.distributed``: the logical-axis
+sharding rules (``sharding``) and the helper that starts N ranks in one
+process group (``spawn``). Processes take the place of the JAX package's
+devices: a mesh is a ``DeviceMesh`` over the ranks of the process group,
+one GPU per rank on CUDA (NCCL), one process per rank on the CPU (gloo).
+"""
+from . import sharding
+from .spawn import spawn
+
+__all__ = ["sharding", "spawn"]

@@ -16,21 +16,24 @@ from .engine import (
     resolve_plan,
     segment_cardinality_ones,
     session,
+    shard_edge_cardinalities,
     sum_edge_cardinalities,
     triple_cardinality_ones,
     tuple_cardinality_ones,
     wedge_quad_ones,
     wedge_triple_ones,
 )
-from .plan import (EnginePlan, fold_edges, fold_edges_masked, map_edges,
-                   order_edges_by_hub, plan_for, pow2_bucket)
+from .plan import (EnginePlan, edge_shard, fold_edge_shard, fold_edges,
+                   fold_edges_masked, map_edges, order_edges_by_hub, plan_for,
+                   pow2_bucket)
 
 __all__ = [
     "DeviceCarry", "EnginePlan", "Footprint", "MiningSession", "api",
-    "edge_cardinalities",
+    "edge_cardinalities", "edge_shard", "fold_edge_shard",
     "fold_edges", "fold_edges_masked", "map_edges", "order_edges_by_hub",
     "pair_cardinality_fn", "plan_for", "pow2_bucket", "resolve_plan",
-    "segment_cardinality_ones", "session", "setexpr", "sum_edge_cardinalities",
+    "segment_cardinality_ones", "session", "setexpr",
+    "shard_edge_cardinalities", "sum_edge_cardinalities",
     "triple_cardinality_ones", "tuple_cardinality_ones", "wedge_quad_ones",
     "wedge_triple_ones",
 ]

@@ -16,6 +16,7 @@ from .engine import (
     resolve_plan,
     segment_cardinality_ones,
     session,
+    shard_edge_cardinalities,
     sum_edge_cardinalities,
     triple_cardinality_ones,
     tuple_cardinality_ones,
@@ -47,6 +48,7 @@ __all__ = [
     "map_edges", "or_all", "order_edges_by_hub", "pair_cardinality_fn",
     "plan_for", "pow2_bucket", "resolve_plan", "rows",
     "segment_cardinality_ones", "session", "setexpr",
+    "shard_edge_cardinalities",
     "sum_edge_cardinalities", "triple_cardinality_ones",
     "tuple_cardinality_ones", "wedge_quad_ones", "wedge_triple_ones",
 ]

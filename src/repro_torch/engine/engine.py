@@ -3,7 +3,10 @@
   * ``pair_cardinality_fn`` — the |N_u ∩ N_v| provider, plan-dispatched
     between the CUDA popcount kernels and the plain PyTorch path.
   * ``edge_cardinalities`` / ``sum_edge_cardinalities`` — chunked per-edge
-    map / fold over an edge list with the degree-ordered layout.
+    map / fold over an edge list with the degree-ordered layout; the fold
+    optionally split over the ranks of the active mesh (``shard_edges``,
+    ``repro_torch.distributed.sharding`` rules), each rank's part being
+    ``shard_edge_cardinalities``.
   * ``tuple_cardinality_ones`` / ``triple_cardinality_ones`` — the k-way
     popcount provider over row-index tuples, compiled from the k-way AND
     set expression (``repro_torch.engine.setexpr``);
@@ -17,8 +20,6 @@
   * ``MiningSession.refresh`` with a host carry or a :class:`DeviceCarry`
     — the streaming tier's delta-aware cache refresh — and
     :class:`Footprint`, the serving tier's invalidation unit.
-
-Edge sharding (``shard_edges=True``) comes with a later slice.
 """
 from __future__ import annotations
 
@@ -27,17 +28,19 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .._device import DEFAULT_DEVICE, DeviceLike, resolve_device
 from ..core.estimators import _popcount_words
 from ..core.graph import Graph
 from ..core.intersect import CardFn, make_pair_cardinality_fn
 from ..core.sketches import SketchSet, build as build_sketch
+from ..distributed import sharding
 from ..kernels import fused_expr, ref
 from ..obs import trace
 from . import setexpr
-from .plan import (EnginePlan, fold_edges, map_edges, order_edges_by_hub,
-                   plan_for)
+from .plan import (EnginePlan, fold_edge_shard, fold_edges, map_edges,
+                   order_edges_by_hub, plan_for)
 
 _PLAN_KWARGS = ("edge_chunk", "block_e", "block_w", "use_kernel",
                 "degree_order", "estimator", "variant", "shard_edges",
@@ -52,11 +55,9 @@ def resolve_plan(plan: Optional[EnginePlan], graph: Graph,
     unknown = set(kw) - set(_PLAN_KWARGS)
     if unknown:
         raise TypeError(f"unknown plan option(s): {sorted(unknown)}")
-    plan = plan_for(graph, sketch, **kw) if plan is None else (
-        plan.with_(**kw) if kw else plan)
-    if plan.shard_edges:
-        raise NotImplementedError("shard_edges=True is not ported yet")
-    return plan
+    if plan is None:
+        return plan_for(graph, sketch, **kw)
+    return plan.with_(**kw) if kw else plan
 
 
 def pair_cardinality_fn(graph: Graph, sketch: Optional[SketchSet],
@@ -83,12 +84,9 @@ def edge_cardinalities(graph: Graph, sketch: Optional[SketchSet],
     return map_edges(edges, fn, plan)
 
 
-def sum_edge_cardinalities(graph: Graph, sketch: Optional[SketchSet],
-                           plan: EnginePlan,
-                           card_fn: Optional[CardFn] = None) -> torch.Tensor:
-    """Σ_{(u,v)∈E} |N_u ∩ N_v| — the TC numerator, fold-executed."""
-    if plan.shard_edges:
-        raise NotImplementedError("shard_edges=True is not ported yet")
+def _fold_inputs(graph: Graph, sketch: Optional[SketchSet],
+                 plan: EnginePlan, card_fn: Optional[CardFn]):
+    """The edge list the fold runs over and its chunk function."""
     fn = card_fn or pair_cardinality_fn(graph, sketch, plan)
     edges = graph.edges
     if plan.degree_order and edges.shape[0] > 1:
@@ -98,7 +96,58 @@ def sum_edge_cardinalities(graph: Graph, sketch: Optional[SketchSet],
         """Masked partial sum of one edge chunk's cardinalities."""
         return torch.sum(torch.where(mask, fn(pairs), 0.0))
 
+    return edges, chunk
+
+
+def sum_edge_cardinalities(graph: Graph, sketch: Optional[SketchSet],
+                           plan: EnginePlan,
+                           card_fn: Optional[CardFn] = None) -> torch.Tensor:
+    """Σ_{(u,v)∈E} |N_u ∩ N_v| — the TC numerator, fold-executed."""
+    edges, chunk = _fold_inputs(graph, sketch, plan, card_fn)
+    if plan.shard_edges:
+        return _sharded_fold(edges, chunk, plan)
     return fold_edges(edges, chunk, plan)
+
+
+def shard_edge_cardinalities(graph: Graph, sketch: Optional[SketchSet],
+                             plan: EnginePlan, index: int, nshards: int,
+                             card_fn: Optional[CardFn] = None
+                             ) -> torch.Tensor:
+    """The part of :func:`sum_edge_cardinalities` that the rank holding
+    edge shard ``index`` of ``nshards`` computes before the reduction
+    (float32 scalar): the fold over its block of the edges in the fold's
+    order (hub order with ``plan.degree_order``; ``fold_edge_shard``)."""
+    edges, chunk = _fold_inputs(graph, sketch, plan, card_fn)
+    return fold_edge_shard(edges, chunk, plan, index, nshards)
+
+
+def _sharded_fold(edges: torch.Tensor, chunk_fn, plan: EnginePlan
+                  ) -> torch.Tensor:
+    """The masked edge fold split over the active mesh's edge dims.
+
+    Without an active mesh, or when the rules give the edge list no mesh
+    dim, this is the local fold (the reference's semantics). Otherwise
+    each rank folds its shard's block (:func:`fold_edge_shard`) and the
+    partials are summed by an ``all_reduce`` over each edge dim's group in
+    turn. Fixed-size sketch rows mean every shard does the same work — the
+    paper's no-straggler property.
+    """
+    mesh = sharding.active_mesh()
+    if mesh is None:
+        return fold_edges(edges, chunk_fn, plan)
+    axes = sharding.spec_axes(sharding.spec_for(("edge", None), mesh=mesh)[0])
+    if not axes:
+        return fold_edges(edges, chunk_fn, plan)
+    if mesh.device_type != edges.device.type:
+        raise ValueError(f"the mesh is on {mesh.device_type!r} but the edges "
+                         f"are on {edges.device.type!r}")
+    sizes = sharding.axis_sizes(mesh)
+    nshards = int(np.prod([sizes[a] for a in axes]))
+    local = fold_edge_shard(edges, chunk_fn, plan,
+                            sharding.mesh_index(mesh, axes), nshards)
+    for a in axes:
+        dist.all_reduce(local, group=mesh.get_group(a))
+    return local
 
 
 def tuple_cardinality_ones(sketch: SketchSet, tuples: torch.Tensor,

@@ -37,7 +37,8 @@ class EnginePlan:
                     the same hub rows while they sit in L2.
       estimator:    estimator override (e.g. "bf_l" on a "bf" sketch).
       variant:      1-Hash Jaccard variant ("union" | "naive").
-      shard_edges:  split the edge fold across devices (not ported yet).
+      shard_edges:  split the edge fold over the ranks of the mesh that
+                    ``distributed.sharding.use_rules`` installs.
       sweep_cap:    max swept prefix length for local clustering sweep cuts.
       frontier_mode: PPR push frontier layout ("dense" | "sparse" | "auto").
       frontier_cap: explicit sparse-frontier capacity override.
@@ -146,6 +147,32 @@ def fold_edges(edges: torch.Tensor, chunk_fn: Callable,
     """
     mask = torch.ones(edges.shape[0], dtype=torch.bool, device=edges.device)
     return fold_edges_masked(edges, mask, chunk_fn, plan)
+
+
+def edge_shard(m: int, nshards: int, index: int,
+               edge_chunk: int) -> Tuple[int, int]:
+    """Rows [start, stop) of shard ``index`` of ``nshards`` over ``m`` edges.
+
+    The reference pads the edge list to a multiple of ``nshards ·
+    min(edge_chunk, m)`` and gives each shard a contiguous block of the
+    padded list; this is that block with the padding cut off (a shard
+    past the last edge is empty). Each block's length is a multiple of
+    the fold's chunk, so the fold's chunks inside it are the reference
+    shard's.
+    """
+    pad = (-m) % (nshards * min(edge_chunk, max(m, 1)))
+    block = (m + pad) // nshards
+    start = min(m, index * block)
+    return start, min(m, start + block)
+
+
+def fold_edge_shard(edges: torch.Tensor, chunk_fn: Callable,
+                    plan: EnginePlan, index: int,
+                    nshards: int) -> torch.Tensor:
+    """The fold of :func:`fold_edges` over shard ``index`` of ``nshards``
+    (:func:`edge_shard`): one rank's partial sum before the reduction."""
+    start, stop = edge_shard(edges.shape[0], nshards, index, plan.edge_chunk)
+    return fold_edges(edges[start:stop], chunk_fn, plan)
 
 
 def map_edges(edges: torch.Tensor, chunk_fn: Callable,

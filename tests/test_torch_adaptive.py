@@ -5,6 +5,7 @@ reference's. Word counts, rows and estimates against ``repro.core.adaptive``
 are in ``tests/test_torch_adaptive_parity.py``. Sizes: Kronecker scale 10,
 Barabási–Albert n = 800.
 """
+import test_torch_threads  # noqa: F401 (caps torch's threads under xdist)
 import numpy as np
 import torch
 

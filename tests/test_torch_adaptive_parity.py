@@ -16,6 +16,7 @@ The same graphs (from the same seeded generators) go through
 The twins of ``tests/test_adaptive.py`` are in
 ``tests/test_torch_adaptive.py``. Sizes: Kronecker scales 9 and 10.
 """
+import test_torch_threads  # noqa: F401 (caps torch's threads under xdist)
 import numpy as np
 import pytest
 import torch

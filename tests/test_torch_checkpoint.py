@@ -6,6 +6,7 @@ the two stores both ways with its ``.npy`` leaves and ``meta.json``
 byte-identical. Stream checkpoints and the launcher's flags are in
 ``tests/test_torch_checkpoint_stream.py``.
 """
+import test_torch_threads  # noqa: F401 (caps torch's threads under xdist)
 import os
 
 import numpy as np

@@ -12,6 +12,7 @@
 
 Sizes: Kronecker scale 8, streams of ≤ 3 deltas, launcher scale 6.
 """
+import test_torch_threads  # noqa: F401 (caps torch's threads under xdist)
 import contextlib
 import io
 import json

@@ -11,6 +11,7 @@ CPU (its plain PyTorch path). Tolerances:
   * ``rtol=1e-7`` between two piece sizes of the port (the same float64
     sums in another grouping, rounded once to float32).
 """
+import test_torch_threads  # noqa: F401 (caps torch's threads under xdist)
 import itertools
 import json
 

@@ -6,6 +6,7 @@ Every input is made with numpy from a seed and handed to the JAX reference
 estimates are held to ``rtol=1e-6`` because XLA's and torch's ``log1p``
 may differ by an ulp.
 """
+import test_torch_threads  # noqa: F401 (caps torch's threads under xdist)
 import numpy as np
 import jax.numpy as jnp
 import pytest

@@ -3,6 +3,7 @@ dedup tests on the port (``device="cpu"``), and ``k_for`` /
 ``jaccard_estimate`` against ``repro.data.dedup``. Sketches, keep masks
 and stats against the reference are in ``tests/test_torch_dedup_parity.py``.
 """
+import test_torch_threads  # noqa: F401 (caps torch's threads under xdist)
 import numpy as np
 
 from repro.data import dedup as RD

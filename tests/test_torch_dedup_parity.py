@@ -11,6 +11,7 @@ visiting order decides which pair drops a doc, which pins the reference's
 order (by first member, then band). The twins of ``tests/test_data.py``'s
 dedup tests are in ``tests/test_torch_dedup.py``. Sizes: ≤ 60 docs.
 """
+import test_torch_threads  # noqa: F401 (caps torch's threads under xdist)
 import numpy as np
 import pytest
 import torch

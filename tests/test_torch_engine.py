@@ -12,6 +12,7 @@ CPU (its plain PyTorch path). Tolerances:
   * ``rtol=1e-5, atol=1e-6``: TC and LCC (float32 sums taken in another
     order).
 """
+import test_torch_threads  # noqa: F401 (caps torch's threads under xdist)
 import dataclasses
 
 import numpy as np
@@ -150,9 +151,10 @@ def test_mine_cli_prints_session_json(capsys):
 
 
 def test_spans_and_unported_paths(sessions):
-    """engine.edge_cards is traced like the reference's; unported options
-    raise instead of running a different computation; the exact session
-    (``sketch=None``) gives the reference's per-edge counts and TC."""
+    """engine.edge_cards is traced like the reference's; a sharded plan
+    without an active mesh is the local fold, bit for bit (the reference's
+    own check); the exact session (``sketch=None``) gives the reference's
+    per-edge counts and TC."""
     _, tg, _, ts = sessions
     TTR.enable()
     TTR.clear()
@@ -163,8 +165,11 @@ def test_spans_and_unported_paths(sessions):
         TTR.disable()
         TTR.clear()
     assert "engine.edge_cards" in names
-    with pytest.raises(NotImplementedError):
-        TE.session(tg, "bf", device=CPU, shard_edges=True)
+    plan = TE.session(tg, "bf", device=CPU, shard_edges=True).plan
+    assert plan.shard_edges and plan == ts.plan.with_(shard_edges=True)
+    sharded = TT.triangle_count(tg, ts.sketch, plan=plan)
+    local = TT.triangle_count(tg, ts.sketch, plan=ts.plan)
+    assert sharded.view(torch.int32) == local.view(torch.int32)
     rg = sessions[0]
     exact = TE.session(tg, None, device=CPU)
     ref = RE.session(rg, None)

@@ -17,6 +17,7 @@ and Adamic–Adar / Resource-Allocation.
     to rtol 1e-6 plus that sum's error bound, (d_u − 1)·2⁻²⁴, with d_u the
     number of terms the reference adds.
 """
+import test_torch_threads  # noqa: F401 (caps torch's threads under xdist)
 import numpy as np
 import jax.numpy as jnp
 import pytest

@@ -9,6 +9,7 @@ own: atol = rtol = 2e-5 in float32 (sums in another order), atol 3e-2 in
 bfloat16. The CUDA kernel is held against this plain version on the card
 (``tests/test_torch_kernels_cuda.py``, ``chip_smoke.py``).
 """
+import test_torch_threads  # noqa: F401 (caps torch's threads under xdist)
 import math
 
 import numpy as np

@@ -4,11 +4,14 @@
   the reference package ``repro`` (checked in a fresh interpreter).
 * Entry points default to ``device="cuda"`` and raise without a GPU
   (those of the tenth slice too: generators, checkpoint restores, dedup,
-  the ragged adaptive converter and the launcher's ``--restore``).
+  the ragged adaptive converter and the launcher's ``--restore``; and of
+  the eleventh: ``mine()``, the spawn helper, meshes and sharded
+  restores).
 * ``use_kernel=True`` with CPU tensors raises.
 * A missing nvcc raises a build error instead of returning a fallback.
 * ``chip_smoke.py`` fails without a GPU, and outside the checkout.
 """
+import test_torch_threads  # noqa: F401 (caps torch's threads under xdist)
 import os
 import shutil
 import subprocess
@@ -123,6 +126,43 @@ def test_tenth_slice_entry_points_need_a_gpu(no_cuda, tmp_path):
     assert sk.data.device.type == "cpu"
     assert float(adaptive.adaptive_triangle_count(g, sk)) > 0
     assert 0.0 <= linkpred.link_prediction_effectiveness(g) <= 1.0
+
+
+def test_sharded_path_entry_points_need_a_gpu(no_cuda, tmp_path):
+    """mine(), the spawn helper (which starts no process then), the host
+    mesh and a restore whose sharding lies on a CUDA mesh raise without a
+    GPU; a sharded plan with no mesh runs the local fold on the CPU."""
+    import multiprocessing
+    import types
+
+    import numpy as np
+
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.distributed import sharding, spawn
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.launch import mine
+
+    g = TG.kronecker(6, 4, seed=1, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        mine.mine(g)
+    with pytest.raises(RuntimeError, match="cuda"):
+        mine.mine(g, device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        spawn(print, 1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        launch_mesh.make_host_mesh()
+    assert not multiprocessing.active_children()
+    save_checkpoint(str(tmp_path), 1, {"x": np.ones(4)})
+    cuda_mesh = types.SimpleNamespace(device_type="cuda",
+                                      mesh_dim_names=("data",), shape=(1,))
+    with pytest.raises(RuntimeError, match="cuda"):
+        restore_checkpoint(str(tmp_path), 1, {"x": np.ones(4)}, {
+            "x": sharding.NamedSharding(cuda_mesh, ("data",))},
+            device="cpu")
+    assert mine.mine(g, device="cpu")["devices"] == 1
+    from repro_torch.core.algorithms.tc import triangle_count
+    sess = TE.session(g, "bf", device="cpu", shard_edges=True)
+    assert float(triangle_count(g, sess.sketch, plan=sess.plan)) > 0
 
 
 def test_use_kernel_on_cpu_tensors_raises():

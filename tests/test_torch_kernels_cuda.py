@@ -18,6 +18,7 @@ within atol = 1e-3 + 2^-8·max|v| (twice that bound, for the accumulation
 order and where the scale is applied, on top of one bf16 rounding of the
 output), rtol 1e-2, and a mean error of at most 1e-3.
 """
+import test_torch_threads  # noqa: F401 (caps torch's threads under xdist)
 import pytest
 import torch
 
@@ -893,3 +894,55 @@ def test_stream_restore_on_the_card_equals_the_cpu(cuda, tmp_path):
     card.save(str(tmp_path / "back"))
     again = StreamSession.restore(str(tmp_path / "back"), device="cpu")
     assert torch.equal(again.sketch.data, cpu.sketch.data)
+
+
+def test_sharded_path_on_the_card_equals_the_cpu(cuda, tmp_path):
+    """At world size 1 on NCCL: the vertex-sharded build equals
+    build_bloom on the CPU, mine() (AND2 gather launches only) the CPU's
+    estimate, and the engine's sharded fold the local fold's float32 bits
+    and the CPU fold within the reference's rtol 1e-5. More NCCL ranks
+    than GPUs raise."""
+    import torch.distributed as dist
+
+    from repro_torch.core import sketches
+    from repro_torch.core.algorithms.tc import triangle_count
+    from repro_torch.distributed import sharding, spawn
+    from repro_torch.distributed.spawn import init_group
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.launch import mine
+
+    host = TG.kronecker(10, 16, seed=1, device="cpu")
+    card = host.to(cuda)
+    # the CPU side first: with no process group it runs alone
+    want = mine.mine(host, device="cpu")
+    cpu = TE.session(host, "bf", storage_budget=0.25, device="cpu",
+                     edge_chunk=1000, degree_order=True)
+    cpu_tc = float(triangle_count(host, cpu.sketch, plan=cpu.plan))
+    init_group("file://" + str(tmp_path / "store"), 1, 0, "cuda", 60.0)
+    try:
+        mesh = launch_mesh.make_host_mesh(1, 1, device=cuda)
+        words = sketches.bloom_words_for_budget(host.n, host.m, 0.25)
+        rows = mine.build_sketches_distributed(card, mesh, words, 2, 0)
+        assert torch.equal(rows.cpu(), sketches.build_bloom(host, words))
+        reset_launch_counts()
+        got = mine.mine(card, mesh, device=cuda)
+        counts = {k: v for k, v in launch_counts().items() if v}
+        forms = dict(fused_expr.FORM_LAUNCHES)
+        assert list(forms) == ["gather/and2"] and got["devices"] == 1
+        assert counts == {"fused_gather_popcount": forms["gather/and2"]}
+        assert got["words"] == want["words"]
+        assert got["tc_estimate"] == pytest.approx(want["tc_estimate"],
+                                                   rel=1e-6)
+        sess = TE.session(card, "bf", storage_budget=0.25, device=cuda,
+                          edge_chunk=1000)
+        local = triangle_count(card, sess.sketch, plan=sess.plan)
+        with sharding.use_rules(mesh):
+            sharded = triangle_count(card, sess.sketch,
+                                     plan=sess.plan.with_(shard_edges=True))
+        assert sharded.view(torch.int32) == local.view(torch.int32)
+        assert float(sharded) == pytest.approx(cpu_tc, rel=1e-5)
+    finally:
+        dist.destroy_process_group()
+    with pytest.raises(RuntimeError, match="GPUs"):
+        spawn(print, torch.cuda.device_count() + 1, device=cuda)

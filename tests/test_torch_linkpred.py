@@ -15,6 +15,7 @@ ef against the reference and the twins of ``test_algorithms.py``'s
 link-prediction tests are in ``tests/test_torch_linkpred_ef.py``. Size:
 Kronecker scale 8.
 """
+import test_torch_threads  # noqa: F401 (caps torch's threads under xdist)
 import numpy as np
 import pytest
 import torch

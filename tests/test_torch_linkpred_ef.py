@@ -7,6 +7,7 @@ the exact and k-Hash scorers, and for the Bloom scorer within the bound in
 ``test_algorithms.py``'s link-prediction tests. Sizes: Kronecker scales 8
 and 9.
 """
+import test_torch_threads  # noqa: F401 (caps torch's threads under xdist)
 import numpy as np
 import pytest
 

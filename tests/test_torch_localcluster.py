@@ -20,6 +20,7 @@ packages run on the CPU. Tolerances:
     step of the cumsums, taken in another order) over its denominator,
     plus rtol 1e-6; the best conductance likewise.
 """
+import test_torch_threads  # noqa: F401 (caps torch's threads under xdist)
 import json
 
 import numpy as np

@@ -16,6 +16,7 @@ port on the CPU (the plain PyTorch path of every kernel). Tolerances:
   * Bloom similarities ``rtol=1e-5``: a ratio of two estimates, each
     within an ulp-level ``rtol`` of the reference's.
 """
+import test_torch_threads  # noqa: F401 (caps torch's threads under xdist)
 import dataclasses
 
 import numpy as np

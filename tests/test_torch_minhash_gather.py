@@ -10,6 +10,7 @@ Pallas kernels (``repro.kernels.mh_intersect`` in interpret mode) on the
 same rows, gathered with numpy. The CUDA kernels themselves are held to
 these plain versions on the card (``tests/test_torch_kernels_cuda.py``).
 """
+import test_torch_threads  # noqa: F401 (caps torch's threads under xdist)
 import struct
 
 import jax.numpy as jnp

@@ -13,6 +13,7 @@ tails, which they do: both cut each piece every ``_LAUNCH_TUPLES`` tuples.
 The CUDA kernel itself is tested on the card
 (``tests/test_torch_kernels_cuda.py``).
 """
+import test_torch_threads  # noqa: F401 (caps torch's threads under xdist)
 import numpy as np
 import jax.numpy as jnp
 import pytest

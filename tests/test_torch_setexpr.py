@@ -8,6 +8,7 @@ Popcounts are integers and must be identical. The reference's gather
 Pallas kernel is not called: it no longer runs on the installed jax (it
 reads ``pltpu.TPUMemorySpace``, which was removed).
 """
+import test_torch_threads  # noqa: F401 (caps torch's threads under xdist)
 import numpy as np
 import jax.numpy as jnp
 import pytest

@@ -21,6 +21,7 @@ the graph and stay below ``bytes_init / 8`` (after
 ``tests/test_stream_equivalence.py``). A replay with ``Graph.adj`` raising
 shows that nothing on the streaming path builds the padded adjacency.
 """
+import test_torch_threads  # noqa: F401 (caps torch's threads under xdist)
 import numpy as np
 import pytest
 import torch

@@ -23,6 +23,7 @@ The lock, publish and footprint disciplines are checked with
 and PG004 (host syncs on unfenced ``jnp`` values inside spans) key on
 JAX's ``jnp``/``jit`` and do not apply to the port.
 """
+import test_torch_threads  # noqa: F401 (caps torch's threads under xdist)
 import contextlib
 import io
 import json
