@@ -33,7 +33,8 @@ Phases, each printed as it runs:
      zeroed before and read after, and timed beside the plain version and
      ``scaled_dot_product_attention`` (a yardstick the port never calls,
      whose own error against the plain version is printed too); the
-     float32 route driven and timed on its own at ATTN_FP32_SHAPE.
+     float32 route driven and timed on its own at qwen3_8b's heads, S =
+     ATTN_FP32_SEQ (shapes from ``repro_torch.configs``).
   3. The Bloom path: a scale-21 Kronecker graph (2.1M vertices, 31.8M
      edges), ``session(g, "bf", storage_budget=1.0)`` on the card,
      ``triangle_count()`` and ``local_clustering()``. The launch counts are
@@ -148,6 +149,30 @@ Phases, each printed as it runs:
      sum of the block's per-edge estimates, their sum within twice the
      bound of the local fold, and the vertex-range builds, concatenated,
      equal to ``build_bloom``.
+  3i. The dense-transformer serving path at full width: ``qwen3_8b``
+     (36 layers, d_model 4,096, 32/8 heads of 128, d_ff 12,288, vocab
+     151,936 padded to 152,064; bfloat16 weights from ``init_params``
+     under a seeded CUDA generator, their count checked against
+     ``total_params()``). The prefill ``forward`` at B = 1, S = 8,192,
+     timed by CUDA events, with the launch counts zeroed just before and
+     read just after (exactly 36 ``wgmma_bf16`` flash launches, nothing
+     else), beside its bound (``model_flops + attention_flops`` over 989
+     TFLOP/s), its peak memory and a profile; the flash kernel alone at
+     one layer's shape. A second forward at S = 2,048 with a hook on every
+     layer's attention core holds each layer's kernel output against
+     ``ref.causal_attention`` on that layer's q, k, v (phase 2's bf16
+     tolerance). 64 teacher-forced ``decode_step``s at batch 2 against
+     the forward's logits on the same tokens, within 2L·2^-8 of max
+     |logit| (top-1 agreement printed). The serve loop
+     (``launch.serve.generate``) on 4 prompts of 3-32 tokens, 32 tokens
+     sampled, max_len 128: tokens in the vocab, ms a step beside the step's
+     bound (the bytes it must move over 3.35 TB/s); ``PROFILE_STEPS``
+     decode steps at that batch under torch.profiler (launches a step,
+     idle share). The float32
+     route: the same config at 4 layers, S = 2,048, 4 ``fma_fp32``
+     launches, each layer held as above at atol = rtol = 2e-5. Last, the
+     launcher ``python -m repro_torch.launch.serve --device cuda`` in a
+     process of its own, its output line checked.
   4. Where the time goes: a warm Bloom pass (and the [T, k] gather
      kernel's time per launch in it), a Bloom sketch build, warm k-Hash
      and 1-Hash-naive passes, the scale-21 4-clique pass, the exact
@@ -171,6 +196,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -202,16 +228,28 @@ DEDUP_CHECKED, DEDUP_SAMPLED = 2_000, 200
 #: one process (NCCL takes one rank per GPU, and the machine has one)
 SHARD_RANKS = (2, 4, 8)
 
-#: the repo's prefill_32k attention shapes (src/repro/configs/):
-#: name -> (batch, seq, heads, kv heads, head dim, window)
-ATTN_SHAPES = {"qwen3_8b": (1, 32768, 32, 8, 128, 0),
-               "h2o_danube3_4b": (1, 32768, 32, 8, 120, 4096),
-               "gemma_2b": (1, 8192, 8, 1, 256, 0)}
-#: the float32 route's timing shape: qwen3_8b's heads at S = 4,096
-#: (batch, seq, heads, kv heads, head dim, window)
-ATTN_FP32_SHAPE = (1, 4096, 32, 8, 128, 0)
+#: phase 2's attention cells: the prefill_32k cell of these configs, one
+#: sequence of its global batch; gemma_2b's sequence cut to its published
+#: context of 8,192 tokens (arXiv:2403.08295) (see ``attention_shapes``)
+ATTN_ARCHS = ("qwen3_8b", "h2o_danube3_4b", "gemma_2b")
+ATTN_CONTEXT = {"gemma_2b": 8192}
+#: the float32 route's timing length, at qwen3_8b's heads
+ATTN_FP32_SEQ = 4096
 #: bound on the mean |kernel - plain| of a bfloat16 case (see attn_tol)
 ATTN_BF16_MEAN = 1e-3
+
+#: phase 3i: the full-width model, its prefill length, the per-layer
+#: check's length, the decode check (batch, tokens), the serving run
+#: (prompt lengths, sampled tokens, cache length, temperature) and the
+#: float32 route's depth (full width)
+MODEL_ARCH = "qwen3_8b"
+PREFILL_SEQ, HOOK_SEQ = 8192, 2048
+DECODE_BATCH, DECODE_TOKENS = 2, 64
+SERVE_PROMPTS, SERVE_TOKENS, SERVE_MAX_LEN, SERVE_TEMPERATURE = \
+    (3, 11, 20, 32), 32, 128, 0.8
+FP32_LAYERS = 4
+#: phase 3i: decode steps profiled at the serving batch
+PROFILE_STEPS = 4
 
 #: why a row's ``library_ms`` is null: no single PyTorch call computes it
 NO_LIBRARY = {
@@ -602,6 +640,26 @@ def phase_minhash_kernels(torch, mh_intersect, ref, flush):
     return timing
 
 
+def attention_shapes():
+    """Phase 2's attention shapes from the port's configs: name -> (batch,
+    seq, heads, kv heads, head dim, window) for each of ``ATTN_ARCHS`` at
+    the prefill_32k cell (``ATTN_CONTEXT`` caps the sequence), and the
+    float32 route's shape: qwen3_8b's heads at ``ATTN_FP32_SEQ``."""
+    from repro_torch import configs
+    from repro_torch.models import SHAPES
+
+    cell = SHAPES["prefill_32k"]
+    shapes = {}
+    for name in ATTN_ARCHS:
+        c = configs.get(name)
+        shapes[name] = (1, min(cell.seq_len, ATTN_CONTEXT.get(name,
+                                                               cell.seq_len)),
+                        c.num_heads, c.num_kv_heads, c.head_dim,
+                        c.sliding_window)
+    b, _, h, kv, d, window = shapes["qwen3_8b"]
+    return shapes, (b, ATTN_FP32_SEQ, h, kv, d, window)
+
+
 def attended_pairs(s: int, window: int) -> int:
     """(query, key) pairs causal attention over s positions attends."""
     if not window or window >= s:
@@ -729,8 +787,9 @@ def phase_attention(torch, flash_attention, ref, flush, lib_path):
           f"max_abs_err {err}, largest mean_abs_err {mean_err}", flush=True)
 
     # the entry point at the prefill shapes, once each, counted
+    attn_shapes, fp32_shape = attention_shapes()
     inputs = {}
-    for name, (b, sq, h, kv, d, window) in ATTN_SHAPES.items():
+    for name, (b, sq, h, kv, d, window) in attn_shapes.items():
         inputs[name] = (randn(b, sq, h, d, dtype=torch.bfloat16),
                         randn(b, sq, kv, d, dtype=torch.bfloat16),
                         randn(b, sq, kv, d, dtype=torch.bfloat16), window)
@@ -739,12 +798,12 @@ def phase_attention(torch, flash_attention, ref, flush, lib_path):
             for name, (q, k, v, window) in inputs.items()}
     torch.cuda.synchronize()
     launches = dict(flash_attention.ROUTE_LAUNCHES)
-    require(launches == {"wgmma_bf16": len(ATTN_SHAPES), "fma_fp32": 0},
+    require(launches == {"wgmma_bf16": len(attn_shapes), "fma_fp32": 0},
             f"flash_attention at the prefill shapes launched {launches}, "
-            f"expected {len(ATTN_SHAPES)} wgmma_bf16 and no fma_fp32")
+            f"expected {len(attn_shapes)} wgmma_bf16 and no fma_fp32")
     timing = {}
     for name, (q, k, v, window) in inputs.items():
-        b, sq, h, kv, d, _ = ATTN_SHAPES[name]
+        b, sq, h, kv, d, _ = attn_shapes[name]
         out = outs.pop(name)
         require(bool(torch.isfinite(out).all()),
                 f"flash_attention {name}: non-finite output")
@@ -787,7 +846,7 @@ def phase_attention(torch, flash_attention, ref, flush, lib_path):
     del inputs, outs
 
     # the float32 route on its own path: one counted call, then timed
-    b, sq, h, kv, d, window = ATTN_FP32_SHAPE
+    b, sq, h, kv, d, window = fp32_shape
     q = randn(b, sq, h, d)
     k, v = randn(b, sq, kv, d), randn(b, sq, kv, d)
     flash_attention.reset_launch_counts()
@@ -3095,6 +3154,355 @@ def phase_reference_minhash(torch, np, TE, g, exact: float):
               flush=True)
 
 
+def profile_run(torch, fn, wall_s: float, top: int = 6):
+    """``fn()`` under torch.profiler: device busy seconds (the sum of its
+    kernels' device time), the idle share against ``wall_s`` (an
+    unprofiled wall time of the same work), the top kernels and the
+    number of kernel launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    lines = [f"    {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x "
+             f"{e.key[:90]}" for e in sorted(
+                 kernels, key=lambda e: -e.self_device_time_total)[:top]]
+    return (busy_s, max(0.0, 1 - busy_s / wall_s), "\n".join(lines),
+            sum(e.count for e in kernels))
+
+
+def hook_attention_cores(torch, ref, model, dtype_name: str, errs: list):
+    """On every layer's attention core, a forward hook that holds the
+    kernel's output against ``ref.causal_attention`` on the layer's own q,
+    k, v under phase 2's tolerance for ``dtype_name``; each layer's max
+    and mean error go to ``errs``. Returns the hooks' handles."""
+    def check(i):
+        def hook(core, inputs, out):
+            q, k, v = inputs
+            want = ref.causal_attention(q, k, v, core.window)
+            diff = (out.float() - want.float()).abs()
+            e, mean = float(diff.max()), float(diff.mean())
+            errs.append((i, e, mean))
+            require(out.dtype == want.dtype and out.shape == want.shape
+                    and torch.allclose(out.float(), want.float(),
+                                       **attn_tol(v, dtype_name))
+                    and (dtype_name == "float32" or mean <= ATTN_BF16_MEAN),
+                    f"layer {i} attention ({dtype_name}): max |kernel - "
+                    f"plain| {e}, mean {mean}")
+        return hook
+    return [layer.mixer.core.register_forward_hook(check(i))
+            for i, layer in enumerate(model.layers)]
+
+
+def step_bytes(model, cfg, batch: int, cache_len: int) -> int:
+    """Bytes one decode step must move: every weight read once, except the
+    token embedding, of which only the batch's rows are read (all of it
+    when tied: it is the head too), and the KV cache read once."""
+    total = sum(p.numel() * p.element_size() for p in model.parameters())
+    emb = model.embed
+    if not cfg.tie_embeddings:
+        total -= (emb.shape[0] - batch) * emb.shape[1] * emb.element_size()
+    cache = (2 * cfg.num_layers * batch * cache_len * cfg.num_kv_heads
+             * cfg.head_dim * emb.element_size())
+    return total + cache
+
+
+def phase_model(torch, np, kernels, ref) -> dict:
+    """Phase 3i: the dense-transformer serving path at full width."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.analysis import roofline
+    from repro_torch.launch import serve
+    from repro_torch.models import (ShapeConfig, decode_step, forward,
+                                    init_cache, init_params)
+
+    fa = kernels.flash_attention
+    t_phase = time.perf_counter()
+
+    def since():
+        return time.perf_counter() - t_phase
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get(MODEL_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    model = init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    n_weights = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    d, L = cfg.d_model, cfg.num_layers
+    norms = L * (2 * d + (2 * cfg.head_dim if cfg.qk_norm else 0)) + d
+    pad = (cfg.padded_vocab - cfg.vocab_size) * d * (
+        1 if cfg.tie_embeddings else 2)
+    require(n_weights == cfg.total_params() + pad + norms,
+            f"{n_weights} weights, expected total_params() "
+            f"{cfg.total_params()} + {pad} pad rows + {norms} norm gains")
+    require(all(p.dtype == torch.bfloat16 and not p.requires_grad
+                for p in model.parameters()), "weights not bf16 inference")
+    print(f"phase 3i: {MODEL_ARCH} at full width ({L} layers, d_model {d}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size} padded to "
+          f"{cfg.padded_vocab}, {cfg.dtype}): {n_weights} weights "
+          f"(total_params() {cfg.total_params()}), {weight_bytes} bytes, "
+          f"drawn in {init_s:.2f} s", flush=True)
+
+    # prefill: one warm-up forward, then the counted and timed one
+    shape = ShapeConfig(f"prefill_{PREFILL_SEQ // 1024}k", PREFILL_SEQ, 1,
+                        "prefill")
+    flops = (roofline.model_flops(cfg, shape)
+             + roofline.attention_flops(cfg, shape))
+    bound_s = flops / roofline.PEAK_FLOPS_BF16
+    tokens = torch.randint(0, cfg.vocab_size, (1, PREFILL_SEQ),
+                           device="cuda", generator=gen)
+    times = []
+    with torch.inference_mode():
+        logits = forward(model, cfg, tokens)
+        torch.cuda.synchronize()
+        del logits
+        torch.cuda.reset_peak_memory_stats()
+        for rep in range(3):
+            if rep == 0:
+                kernels.reset_launch_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits = forward(model, cfg, tokens)
+            stop.record()
+            stop.synchronize()
+            times.append(start.elapsed_time(stop) / 1e3)
+            if rep == 0:
+                prefill_peak = torch.cuda.max_memory_allocated()
+                routes = dict(fa.ROUTE_LAUNCHES)
+                others = {k: n for k, n in kernels.launch_counts().items()
+                          if n and k != "flash_attention"}
+                require(routes == {"wgmma_bf16": L, "fma_fp32": 0}
+                        and not others,
+                        f"the {MODEL_ARCH} forward launched {routes}, "
+                        f"{others}; expected {L} wgmma_bf16 and nothing else")
+                # finite iff the extremes are (max and min propagate NaN)
+                ends = torch.stack([logits[..., :cfg.vocab_size].amax(),
+                                    logits[..., :cfg.vocab_size].amin()])
+                require(tuple(logits.shape) == (1, PREFILL_SEQ,
+                                                cfg.padded_vocab)
+                        and bool(torch.isfinite(ends).all())
+                        and bool((logits[..., cfg.vocab_size:]
+                                  == -1e30).all()),
+                        "prefill logits: shape, finite values or pad mask")
+            del logits
+        prefill_s = sorted(times)[1]
+        busy, idle, top, _ = profile_run(
+            torch, lambda: forward(model, cfg, tokens), prefill_s, top=8)
+        print(f"  [{since():.1f} s] prefill B=1 S={PREFILL_SEQ}: "
+              f"{prefill_s:.4f} s (median of {[round(t, 4) for t in times]};"
+              f" events), "
+              f"{PREFILL_SEQ / prefill_s:.0f} tokens/s, peak memory "
+              f"{prefill_peak} bytes; bound {bound_s:.4f} s "
+              f"({flops:.4g} flop: model_flops + attention_flops over "
+              f"{roofline.PEAK_FLOPS_BF16:.4g} flop/s), "
+              f"{bound_s / prefill_s:.2%} of bound; launches {routes}; "
+              f"profiled: device busy "
+              f"{busy * 1e3:.3f} ms, idle share {idle:.1%}; top kernels:\n"
+              f"{top}", flush=True)
+        # the flash kernel alone at one layer's prefill shape
+        h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        q = torch.randn((1, PREFILL_SEQ, h, hd), device="cuda",
+                        generator=gen).to(torch.bfloat16)
+        k, v = (torch.randn((1, PREFILL_SEQ, kvh, hd), device="cuda",
+                            generator=gen).to(torch.bfloat16)
+                for _ in range(2))
+        attn_ms = time_ms(lambda: fa.flash_attention(q, k, v),
+                          lambda: None, reps=10, warmup=2)
+        attn_flops = 4 * h * hd * attended_pairs(PREFILL_SEQ, 0)
+        attn_bound, _ = bound_ms(0, attn_flops, PEAK_BF16_FLOPS)
+        del q, k, v
+        print(f"  [{since():.1f} s] flash_attention_wgmma at one layer's "
+              f"prefill shape (B=1 S={PREFILL_SEQ} H={h} KV={kvh} D={hd}): "
+              f"{attn_ms:.4f} ms"
+              f" (bound {attn_bound:.4f} ms, {attn_bound / attn_ms:.2%}); "
+              f"{L} layers {L * attn_ms / 1e3:.4f} s, "
+              f"{L * attn_ms / 1e3 / prefill_s:.1%} of the prefill",
+              flush=True)
+
+        # every layer's kernel against the plain version, on its q, k, v
+        errs = []
+        handles = hook_attention_cores(torch, ref, model, "bfloat16", errs)
+        try:
+            hook_tokens = tokens[:, :HOOK_SEQ]
+            before = fa.ROUTE_LAUNCHES["wgmma_bf16"]
+            logits = forward(model, cfg, hook_tokens)
+            torch.cuda.synchronize()
+            del logits
+        finally:
+            for handle in handles:
+                handle.remove()
+        require(len(errs) == L and fa.ROUTE_LAUNCHES["wgmma_bf16"]
+                == before + L, f"hooked {len(errs)} layers")
+        bf16_err = max(e for _, e, _ in errs)
+        print(f"  [{since():.1f} s] every layer's kernel output "
+              f"(S={HOOK_SEQ}) within phase 2's bf16 tolerance of "
+              f"ref.causal_attention on its own q, k, v: max |kernel - "
+              f"plain| {bf16_err:.4g} (layer "
+              f"{max(errs, key=lambda r: r[1])[0]}), largest mean "
+              f"{max(m for _, _, m in errs):.3g}", flush=True)
+
+        # decode against prefill on the same tokens
+        dec_tokens = torch.randint(0, cfg.vocab_size,
+                                   (DECODE_BATCH, DECODE_TOKENS),
+                                   device="cuda", generator=gen)
+        full = forward(model, cfg, dec_tokens)[..., :cfg.vocab_size].float()
+        cache = init_cache(cfg, DECODE_BATCH, DECODE_TOKENS, device="cuda")
+        steps = []
+        for i in range(DECODE_TOKENS):
+            lg, cache = decode_step(model, cache, cfg,
+                                    dec_tokens[:, i:i + 1])
+            steps.append(lg[:, 0, :cfg.vocab_size].float())
+        dec = torch.stack(steps, dim=1)
+        del steps, cache
+        diff = (dec - full).abs()
+        dec_err, dec_mean = float(diff.max()), float(diff.mean())
+        scale = float(full.abs().max())
+        dec_bound = 2 * L * 2.0 ** -8
+        top1 = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
+        del dec, full, diff
+        require(dec_err <= dec_bound * scale,
+                f"decode vs prefill: max |diff| {dec_err} > {dec_bound} x "
+                f"max |logit| {scale}")
+        print(f"  [{since():.1f} s] decode_step x{DECODE_TOKENS} at batch "
+              f"{DECODE_BATCH} vs forward on the same tokens: max |diff| "
+              f"{dec_err:.4g}, mean "
+              f"{dec_mean:.4g}, max |logit| {scale:.4g} (bound 2L·2^-8 = "
+              f"{dec_bound:.4f} of it); top-1 agreement {top1:.2%}",
+              flush=True)
+
+    # serving: the launcher's loop at full width
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in SERVE_PROMPTS]
+    sample = torch.Generator(device="cuda").manual_seed(1)
+
+    def serve_run(num_tokens):
+        return serve.generate(model, cfg, prompts, num_tokens,
+                              max_len=SERVE_MAX_LEN,
+                              temperature=SERVE_TEMPERATURE,
+                              generator=sample)
+
+    serve_run(1)                           # warm-up: each op at its shapes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = serve_run(SERVE_TOKENS)
+    serve_s = time.perf_counter() - t0
+    require(out.shape == (len(prompts), SERVE_TOKENS) and out.min() >= 0
+            and out.max() < cfg.vocab_size,
+            f"served tokens: shape {out.shape}, range [{out.min()}, "
+            f"{out.max()}]")
+    n_steps = max(SERVE_PROMPTS) + SERVE_TOKENS
+    step_ms = serve_s / n_steps * 1e3
+    nbytes = step_bytes(model, cfg, len(prompts), SERVE_MAX_LEN)
+    step_bound_ms = nbytes / PEAK_BYTES_S * 1e3
+    print(f"  [{since():.1f} s] serving {len(prompts)} prompts of "
+          f"{list(SERVE_PROMPTS)} tokens, {SERVE_TOKENS} sampled at "
+          f"T={SERVE_TEMPERATURE}, max_len {SERVE_MAX_LEN}: {serve_s:.3f} s "
+          f"for {n_steps} decode steps, {step_ms:.3f} ms a step, "
+          f"{len(prompts) * SERVE_TOKENS / serve_s:.1f} sampled tokens/s; "
+          f"step bound {step_bound_ms:.3f} ms ({nbytes} bytes over "
+          f"{PEAK_BYTES_S:.3g} B/s), {step_bound_ms / step_ms:.2%} of bound",
+          flush=True)
+
+    # where a decode step's time goes: PROFILE_STEPS steps at the serving
+    # batch and cache length, unprofiled, then under the profiler
+    step_in = torch.from_numpy(np.asarray(out[:, :1], np.int64)).cuda()
+
+    def steps():
+        with torch.inference_mode():
+            cache = init_cache(cfg, len(prompts), SERVE_MAX_LEN,
+                               device="cuda")
+            for _ in range(PROFILE_STEPS):
+                _, cache = decode_step(model, cache, cfg, step_in)
+
+    steps()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps()
+    torch.cuda.synchronize()
+    steps_s = time.perf_counter() - t0
+    busy, idle, top, launches = profile_run(torch, steps, steps_s, top=8)
+    print(f"  [{since():.1f} s] {PROFILE_STEPS} decode steps at batch "
+          f"{len(prompts)}: {steps_s / PROFILE_STEPS * 1e3:.3f} ms a step; "
+          f"profiled: {launches / PROFILE_STEPS:.0f} kernel launches a step, "
+          f"device busy {busy / PROFILE_STEPS * 1e3:.3f} ms a step, idle "
+          f"share {idle:.1%}; top kernels:\n{top}", flush=True)
+    phase_peak = max(init_peak, torch.cuda.max_memory_allocated())
+    del model
+    torch.cuda.empty_cache()
+
+    # the float32 route on the path: full width, FP32_LAYERS layers
+    cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=FP32_LAYERS)
+    model32 = init_params(cfg32, gen, device="cuda")
+    errs = []
+    handles = hook_attention_cores(torch, ref, model32, "float32", errs)
+    try:
+        with torch.inference_mode():
+            kernels.reset_launch_counts()
+            logits = forward(model32, cfg32, tokens[:, :HOOK_SEQ])
+            torch.cuda.synchronize()
+            fp32_routes = dict(fa.ROUTE_LAUNCHES)
+            finite = bool(torch.isfinite(logits[..., :cfg.vocab_size]).all())
+            del logits
+    finally:
+        for handle in handles:
+            handle.remove()
+    require(fp32_routes == {"wgmma_bf16": 0, "fma_fp32": FP32_LAYERS}
+            and len(errs) == FP32_LAYERS and finite,
+            f"float32 forward: launches {fp32_routes}, {len(errs)} layers "
+            f"checked, finite {finite}")
+    fp32_err = max(e for _, e, _ in errs)
+    phase_peak = max(phase_peak, torch.cuda.max_memory_allocated())
+    del model32
+    torch.cuda.empty_cache()
+    print(f"  [{since():.1f} s] float32 route: {MODEL_ARCH} at full width,"
+          f" {FP32_LAYERS} layers, S={HOOK_SEQ}: launches {fp32_routes}; "
+          f"every layer within "
+          f"atol = rtol = 2e-5 of ref.causal_attention, max |kernel - plain| "
+          f"{fp32_err:.4g}", flush=True)
+
+    # the launcher, in a process of its own
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          "--device", "cuda"], capture_output=True,
+                         text=True, timeout=600,
+                         env={**os.environ, "PYTHONPATH": str(SRC)})
+    first = (run.stdout.splitlines() or [""])[0]
+    require(run.returncode == 0 and re.fullmatch(
+        r"generated \(4, 32\) in [0-9.]+s \([0-9.]+ tok/s\) on cuda:0",
+        first), f"serve launcher: exit {run.returncode}, first line "
+                f"{first!r}, stderr {run.stderr[-2000:]}")
+    print(f"  [{since():.1f} s] python -m repro_torch.launch.serve --device "
+          f"cuda: {first!r} ({time.perf_counter() - t0:.1f} s with the "
+          f"process start)",
+          flush=True)
+    out = dict(prefill_s=prefill_s, prefill_times=times, bound_s=bound_s,
+               prefill_peak=prefill_peak, phase_peak=phase_peak,
+               attn_ms=attn_ms, bf16_launches=routes["wgmma_bf16"],
+               fp32_launches=fp32_routes["fma_fp32"], bf16_err=bf16_err,
+               fp32_err=fp32_err, dec_err=dec_err, dec_scale=scale,
+               top1=top1, step_ms=step_ms, step_bound_ms=step_bound_ms,
+               serve_s=serve_s, phase_s=time.perf_counter() - t_phase)
+    print(f"phase 3i: {out['phase_s']:.1f} s in all, peak memory "
+          f"{phase_peak} bytes ({smi_line()})", flush=True)
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         raise SystemExit(f"no port sources under {SRC}: run chip_smoke.py "
@@ -3177,6 +3585,8 @@ def main() -> None:
     sharded = phase_sharded(torch, TE, kernels, g)
     del g
     torch.cuda.empty_cache()
+    model = phase_model(torch, np, kernels, ref)
+    timing["flash_attention_wgmma"]["model_ms"] = model["attn_ms"]
     g12, exact = phase_reference(torch, np, TE, TG, sketches)
     phase_reference_exact(torch, np, TE, g12, exact)
     phase_reference_minhash(torch, np, TE, g12, exact)
@@ -3218,7 +3628,13 @@ def main() -> None:
           f"{sharded['mine']['build_s']:.3f} s mine "
           f"{sharded['mine']['mine_s']:.3f} s, {sharded['mine_launches']} + "
           f"{sharded['fold_launches']} gather/and2 launches (mine, sharded "
-          f"fold), {sharded['phase_s']:.1f} s"
+          f"fold), {sharded['phase_s']:.1f} s; {MODEL_ARCH} (phase 3i) "
+          f"prefill S={PREFILL_SEQ} {model['prefill_s']:.4f} s (bound "
+          f"{model['bound_s']:.4f} s), {model['bf16_launches']} wgmma_bf16 "
+          f"+ {model['fp32_launches']} fma_fp32 launches, decode "
+          f"{model['step_ms']:.3f} ms a step (bound "
+          f"{model['step_bound_ms']:.3f} ms), peak {model['phase_peak']} "
+          f"bytes, {model['phase_s']:.1f} s"
           + f"; total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # each row: the kernel's launches on the paths that run it, each path
@@ -3321,9 +3737,14 @@ def main() -> None:
     # phase 3h: mine() and the sharded fold at world size 1 (AND2 gather)
     sharded_rows = {"fused_gather_popcount": sharded["launches"],
                     "bf_edge_intersect": sharded["launches"]}
+    # phase 3i: the full-width forward (bf16) and the float32 route's
+    # forward; the hooked bf16 forward that holds each layer to the plain
+    # version is not counted
+    model_rows = {"flash_attention_wgmma": model["bf16_launches"],
+                  "flash_attention": model["fp32_launches"]}
     rows = [(name, source, replaces, launches + stream_rows.get(name, 0)
              + adaptive_rows.get(name, 0) + linkpred_rows.get(name, 0)
-             + sharded_rows.get(name, 0))
+             + sharded_rows.get(name, 0) + model_rows.get(name, 0))
             for name, source, replaces, launches in rows]
     records = [{
         "name": name, "route": "cuda", "source": source,
@@ -3336,6 +3757,8 @@ def main() -> None:
            if name in linkpred_rows else {}),
         **({"sharded_launches": sharded_rows[name]}
            if name in sharded_rows else {}),
+        **({"model_launches": model_rows[name]}
+           if name in model_rows else {}),
         "max_abs_err": timing[name]["max_abs_err"],
         "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
         "bound_ms": timing[name]["bound_ms"],
@@ -3345,7 +3768,7 @@ def main() -> None:
         "library_note": timing[name].get("library_note"),
         "timed_at": timing[name]["timed_at"],
         **{key: value for key, value in timing[name].items()
-           if key in ("kernel", "gather_ms", "bound_ms_tuples",
+           if key in ("kernel", "gather_ms", "bound_ms_tuples", "model_ms",
                       "old_route_ms", "warm_ms", "real_rows", "deep_ms",
                       "deep_warm_ms", "deep_real_rows", "khash_gather_ms",
                       "khash_gather_warm_ms") or key.startswith("clique_")},

@@ -78,3 +78,57 @@ def adaptive_from_numpy(data, words, num_hashes: int, seed: int,
         words=torch.from_numpy(w.astype(np.int32)).to(dev),
         num_hashes=int(num_hashes), seed=int(seed), n=int(n),
         words_max=int(words_max))
+
+
+def unstack_layers(blocks, cfg) -> list:
+    """The reference's stacked ``blocks[b][slot]`` trees (leaves with a
+    leading ``repeat`` axis), parameters or caches, as one tree per layer
+    in the port's layer order (block by block, repeat-major)."""
+    from .models.model import build_plan
+
+    def pick(tree, r):
+        if isinstance(tree, dict):
+            return {k: pick(v, r) for k, v in tree.items()}
+        return np.asarray(tree)[r]
+
+    return [pick(slots[si], r)
+            for blk, slots in zip(build_plan(cfg), blocks)
+            for r in range(blk.repeat) for si in range(len(blk.sigs))]
+
+
+def _dotted(tree, prefix: str, out: dict) -> dict:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _dotted(v, f"{prefix}{k}.", out)
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def model_params_from_numpy(params, cfg,
+                            device: DeviceLike = DEFAULT_DEVICE):
+    """A port :class:`~repro_torch.models.Model` holding the numbers of the
+    reference's ``init_params`` tree (leaves as numpy arrays, or anything
+    ``np.asarray`` takes). Every leaf must match a weight of the port's
+    model in name and shape, and every weight must be given."""
+    from .models.model import Model
+
+    dev = resolve_device(device)
+    model = Model(cfg, None, dev)
+    flat = {k: v for k, v in params.items() if k != "blocks"
+            and not isinstance(v, dict)}
+    for i, layer in enumerate(unstack_layers(params["blocks"], cfg)):
+        _dotted(layer, f"layers.{i}.", flat)
+    state = model.state_dict()
+    if set(flat) != set(state):
+        raise ValueError(f"reference leaves and port weights differ: only "
+                         f"in the reference {sorted(set(flat) - set(state))}, "
+                         f"only in the port {sorted(set(state) - set(flat))}")
+    with torch.no_grad():
+        for name, t in state.items():
+            arr = np.array(flat[name], dtype=np.float32)
+            if tuple(arr.shape) != tuple(t.shape):
+                raise ValueError(f"{name}: reference shape {arr.shape}, "
+                                 f"port shape {tuple(t.shape)}")
+            t.copy_(torch.from_numpy(arr))
+    return model

@@ -1,0 +1,230 @@
+"""Model assembly for the dense decoder: block planning, prefill forward and
+the synchronized cached decode step.
+
+The port of ``repro.models.model`` for layers of signature ("attn",
+"mlp"). The reference stacks each block's layers and scans over them; the
+port keeps one :class:`DecoderLayer` per layer in a ``ModuleList``, in
+the reference's layer order (block by block, repeat-major), which is the
+order :func:`repro_torch.convert.model_params_from_numpy` unstacks the
+reference's ``blocks[b][slot]`` leaves into. Configs with MLA, SSM or MoE
+layers raise ``NotImplementedError``.
+
+Entry points run on CUDA unless the caller passes ``device="cpu"``; the
+model's weights never require grad (this slice serves, it does not train).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from .._device import DEFAULT_DEVICE, DeviceLike, resolve_device
+from . import layers as L
+from .config import ModelConfig
+
+LayerSig = Tuple[str, str]  # (mixer_kind, ffn_kind)
+Cache = Dict[str, Any]
+
+#: the signature this slice of the port runs
+DENSE: LayerSig = ("attn", "mlp")
+#: where the other signatures' port is queued
+WAITING = "ROADMAP Queue 1, item 2 (MoE, MLA and SSM layers)"
+
+
+# ---------------------------------------------------------------------------
+# Block planning
+# ---------------------------------------------------------------------------
+
+def layer_sigs(cfg: ModelConfig) -> List[LayerSig]:
+    sigs = []
+    for li in range(cfg.num_layers):
+        if cfg.layer_pattern:
+            mixer = cfg.layer_pattern[li % len(cfg.layer_pattern)]
+        elif cfg.ssm:
+            mixer = "ssm"
+        elif cfg.mla:
+            mixer = "mla"
+        else:
+            mixer = "attn"
+        if cfg.ssm and not cfg.layer_pattern:
+            ffn = "none"  # pure mamba block has no separate FFN
+        elif (cfg.moe_num_experts > 0 and li >= cfg.moe_layer_start
+              and (li - cfg.moe_layer_start) % cfg.moe_every == 0):
+            ffn = "moe"
+        else:
+            ffn = "mlp"
+        sigs.append((mixer, ffn))
+    return sigs
+
+
+@dataclasses.dataclass(frozen=True)
+class Block:
+    sigs: Tuple[LayerSig, ...]   # sublayers of one repeat, in order
+    repeat: int                  # repeats of the block
+
+
+def build_plan(cfg: ModelConfig) -> List[Block]:
+    """The reference's grouping of layers into repeated blocks; the port
+    uses it only to order layers as the reference stacks them."""
+    sigs = layer_sigs(cfg)
+    n = len(sigs)
+    runs: List[Tuple[LayerSig, int]] = []
+    for s in sigs:
+        if runs and runs[-1][0] == s:
+            runs[-1] = (s, runs[-1][1] + 1)
+        else:
+            runs.append((s, 1))
+    if len(runs) <= 4:
+        return [Block((s,), c) for s, c in runs]
+    for p in range(1, min(n, 16) + 1):
+        if n % p == 0 and all(sigs[i] == sigs[i % p] for i in range(n)):
+            return [Block(tuple(sigs[:p]), n // p)]
+    return [Block((s,), 1) for s in sigs]
+
+
+def plan_sigs(cfg: ModelConfig) -> List[LayerSig]:
+    """Each layer's signature in the order of :func:`build_plan` (block by
+    block, repeat-major); raises for a signature this slice does not run."""
+    sigs = [sig for blk in build_plan(cfg) for _ in range(blk.repeat)
+            for sig in blk.sigs]
+    other = sorted({s for s in sigs if s != DENSE})
+    if other:
+        raise NotImplementedError(
+            f"{cfg.name}: layers {other} are not ported yet; only "
+            f"{DENSE} runs in this slice. They wait for {WAITING}.")
+    return sigs
+
+
+# ---------------------------------------------------------------------------
+# Sublayers
+# ---------------------------------------------------------------------------
+
+class DecoderLayer(nn.Module):
+    """Pre-norm attention then pre-norm gated MLP, each added to the
+    residual: the reference's ``_init_sublayer`` / ``_apply_sublayer`` for
+    ("attn", "mlp")."""
+
+    def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator],
+                 device):
+        super().__init__()
+        dt = L._dtype(cfg)
+        self.cfg = cfg
+        self.ln1 = L.init_rms_norm(cfg.d_model, dt, device)
+        self.mixer = L.init_attention(cfg, gen, device)
+        self.ln2 = L.init_rms_norm(cfg.d_model, dt, device)
+        self.ffn = L.init_mlp(cfg, gen, device)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        eps = self.cfg.norm_eps
+        x = x + self.mixer(L.rms_norm(x, self.ln1, eps), positions)
+        return x + self.ffn(L.rms_norm(x, self.ln2, eps))
+
+
+def _decode_sublayer(cfg: ModelConfig, p: DecoderLayer,
+                     cache: Dict[str, torch.Tensor], x: torch.Tensor,
+                     pos: int) -> torch.Tensor:
+    """The layer on one position; its KV cache is updated in place."""
+    x = x + L.attention_decode(p.mixer, L.rms_norm(x, p.ln1, cfg.norm_eps),
+                               cache, cfg, pos)
+    return x + p.ffn(L.rms_norm(x, p.ln2, cfg.norm_eps))
+
+
+# ---------------------------------------------------------------------------
+# Full model
+# ---------------------------------------------------------------------------
+
+class Model(nn.Module):
+    """The decoder's weights: ``embed`` [padded vocab, d] (token input),
+    ``layers``, ``final_norm`` and ``head`` [d, padded vocab] (untied)."""
+
+    def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator],
+                 device):
+        super().__init__()
+        sigs = plan_sigs(cfg)
+        dt = L._dtype(cfg)
+        self.cfg = cfg
+        if cfg.input_mode == "tokens":
+            self.embed = L._init(gen, (cfg.padded_vocab, cfg.d_model), 0.02,
+                                 dt, device)
+        self.layers = nn.ModuleList(
+            DecoderLayer(cfg, gen, device) for _ in sigs)
+        self.final_norm = L.init_rms_norm(cfg.d_model, dt, device)
+        if not cfg.tie_embeddings:
+            self.head = L._init(gen, (cfg.d_model, cfg.padded_vocab), 0.02,
+                                dt, device)
+
+    def forward(self, inputs: torch.Tensor,
+                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return forward(self, self.cfg, inputs, positions)
+
+
+def init_params(cfg: ModelConfig, key: Union[int, torch.Generator] = 0,
+                device: DeviceLike = DEFAULT_DEVICE) -> Model:
+    """A :class:`Model` with random weights: embedding and head N(0, 0.02²)
+    over the padded vocab, projections N(0, 1/fan_in), norms 0 (gain 1).
+    ``key`` is a seed or a ``torch.Generator`` on ``device``. The numbers
+    are not the reference's (another generator); carry those with
+    :func:`repro_torch.convert.model_params_from_numpy`."""
+    dev = resolve_device(device)
+    gen = key if isinstance(key, torch.Generator) else \
+        torch.Generator(device=dev).manual_seed(int(key))
+    return Model(cfg, gen, dev)
+
+
+def _embed(params: Model, cfg: ModelConfig, inputs: torch.Tensor):
+    if cfg.input_mode == "tokens":
+        return params.embed[inputs]
+    return inputs.to(L._dtype(cfg))
+
+
+def forward(params: Model, cfg: ModelConfig, inputs: torch.Tensor,
+            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """inputs: int tokens [B, S] or embeddings [B, S, d]. Returns logits
+    [B, S, padded vocab], the pad region -1e30."""
+    x = _embed(params, cfg, inputs)
+    b, s = x.shape[0], x.shape[1]
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device)[None].expand(b, s)
+    for layer in params.layers:
+        x = layer(x, positions)
+    x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
+    return _lm_head(params, cfg, x)
+
+
+def _lm_head(params: Model, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Logits over the padded vocab; the pad region set to -1e30 in place."""
+    if cfg.tie_embeddings:
+        logits = x @ params.embed.t()
+    else:
+        logits = x @ params.head
+    if cfg.padded_vocab != cfg.vocab_size:
+        logits[..., cfg.vocab_size:] = L.NEG_INF
+    return logits
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: DeviceLike = DEFAULT_DEVICE) -> Cache:
+    """Per layer a KV cache (a ring buffer of ``min(max_len, window)``
+    slots for sliding-window configs), and the synchronized position."""
+    dev = resolve_device(device)
+    dt = L._dtype(cfg)
+    return {"layers": [L.init_attention_cache(cfg, batch, max_len, dt, dev)
+                       for _ in plan_sigs(cfg)],
+            "pos": 0}
+
+
+def decode_step(params: Model, cache: Cache, cfg: ModelConfig,
+                inputs: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+    """One synchronized decode step. inputs: [B, 1] tokens or [B, 1, d]
+    embeddings. Returns logits [B, 1, padded vocab] and the cache at
+    ``pos + 1``; its KV tensors are updated in place."""
+    pos = int(cache["pos"])
+    x = _embed(params, cfg, inputs)
+    for layer, lc in zip(params.layers, cache["layers"]):
+        x = _decode_sublayer(cfg, layer, lc, x, pos)
+    x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
+    return _lm_head(params, cfg, x), {"layers": cache["layers"],
+                                      "pos": pos + 1}

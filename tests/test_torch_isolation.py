@@ -4,9 +4,10 @@
   the reference package ``repro`` (checked in a fresh interpreter).
 * Entry points default to ``device="cuda"`` and raise without a GPU
   (those of the tenth slice too: generators, checkpoint restores, dedup,
-  the ragged adaptive converter and the launcher's ``--restore``; and of
+  the ragged adaptive converter and the launcher's ``--restore``; of
   the eleventh: ``mine()``, the spawn helper, meshes and sharded
-  restores).
+  restores; and of the model path: the model, its cache, the converter
+  and the server).
 * ``use_kernel=True`` with CPU tensors raises.
 * A missing nvcc raises a build error instead of returning a fallback.
 * ``chip_smoke.py`` fails without a GPU, and outside the checkout.
@@ -163,6 +164,24 @@ def test_sharded_path_entry_points_need_a_gpu(no_cuda, tmp_path):
     from repro_torch.core.algorithms.tc import triangle_count
     sess = TE.session(g, "bf", device="cpu", shard_edges=True)
     assert float(triangle_count(g, sess.sketch, plan=sess.plan)) > 0
+
+
+def test_model_path_entry_points_need_a_gpu(no_cuda):
+    """init_params, init_cache, the converter, BatchedServer and the serve
+    launcher raise without a GPU unless given device='cpu'."""
+    from repro_torch import configs, convert
+    from repro_torch.launch import serve
+    from repro_torch.models import init_cache, init_params, reduced
+
+    cfg = reduced(configs.get("qwen3_8b"))
+    for call in (lambda: init_params(cfg),
+                 lambda: init_cache(cfg, 1, 8),
+                 lambda: convert.model_params_from_numpy({}, cfg),
+                 lambda: serve.BatchedServer(serve.ServeConfig()),
+                 lambda: serve.main([])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert init_params(cfg, device="cpu").final_norm.device.type == "cpu"
 
 
 def test_use_kernel_on_cpu_tensors_raises():

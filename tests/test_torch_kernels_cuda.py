@@ -946,3 +946,57 @@ def test_sharded_path_on_the_card_equals_the_cpu(cuda, tmp_path):
         dist.destroy_process_group()
     with pytest.raises(RuntimeError, match="GPUs"):
         spawn(print, torch.cuda.device_count() + 1, device=cuda)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_model_on_the_card_equals_the_cpu(cuda, dtype):
+    """A reduced qwen3_8b (qk-norm, GQA) and h2o_danube3_4b (window 64) on
+    the card: the prefill forward launches the flash kernel once per
+    layer, on the dtype's route, and its logits and 80 teacher-forced
+    decode steps (past the ring buffer) equal the same model on the CPU.
+    float32: within 1e-4 of max |logit| (the CPU parity tests' bound).
+    bfloat16: within 2L · 2^-8 of max |logit|, one bf16 rounding (2^-9 a
+    side) of each of the 2L sublayers' outputs carried to the logits at
+    gain 1 (stated in CHANGES.md)."""
+    import copy
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import (decode_step, forward, init_cache,
+                                    init_params, reduced)
+
+    for arch in ("qwen3_8b", "h2o_danube3_4b"):
+        cfg = dataclasses.replace(
+            reduced(configs.get(arch), layers=3, d_model=256, heads=4, kv=2,
+                    ff=512, vocab=1000), dtype=dtype)
+        host = init_params(cfg, 0, device="cpu")
+        card = copy.deepcopy(host).to(cuda)
+        tol = 1e-4 if dtype == "float32" else 2 * cfg.num_layers * 2.0 ** -8
+        v = cfg.vocab_size
+
+        def close(got, want, what):
+            err = float((got.float().cpu() - want.float())[..., :v].abs()
+                        .max())
+            scale = max(float(want.float()[..., :v].abs().max()), 1.0)
+            assert err <= tol * scale, (arch, what, err, scale)
+            assert (got[..., v:] == -1e30).all()
+
+        tokens = torch.randint(0, v, (2, 300), generator=torch.Generator()
+                               .manual_seed(3))
+        with torch.inference_mode():
+            want = forward(host, cfg, tokens)
+            flash_attention.reset_launch_counts()
+            got = forward(card, cfg, tokens.to(cuda))
+            torch.cuda.synchronize()
+            assert flash_attention.ROUTE_LAUNCHES == {
+                "wgmma_bf16": 3 * (dtype == "bfloat16"),
+                "fma_fp32": 3 * (dtype == "float32")}
+            close(got, want, "forward")
+            hc = init_cache(cfg, 2, 96, device="cpu")
+            cc = init_cache(cfg, 2, 96, device=cuda)
+            for i in range(80):
+                want, hc = decode_step(host, hc, cfg, tokens[:, i:i + 1])
+                got, cc = decode_step(card, cc, cfg,
+                                      tokens[:, i:i + 1].to(cuda))
+                close(got, want, f"decode step {i}")
+            assert flash_attention.LAUNCHES["flash_attention"] == 3
