@@ -28,7 +28,9 @@ Phases, each printed as it runs:
      main path's shape beside its bound (the MinHash gather forms also
      beside the old route: two ``index_select`` row copies, then the rows
      kernel); attention at the repo's
-     prefill_32k shapes (qwen3_8b, h2o_danube3_4b, gemma_2b; bf16), driven
+     prefill_32k shapes (qwen3_8b, h2o_danube3_4b, gemma_2b; bf16) and
+     deepseek_v3's MLA prefill shape (H = KV = 128, D = 192, S = 2,048,
+     v as the model pads it), driven
      once through ``flash_attention`` with its per-route launch counts
      zeroed before and read after, and timed beside the plain version and
      ``scaled_dot_product_attention`` (a yardstick the port never calls,
@@ -173,6 +175,31 @@ Phases, each printed as it runs:
      launches, each layer held as above at atol = rtol = 2e-5. Last, the
      launcher ``python -m repro_torch.launch.serve --device cuda`` in a
      process of its own, its output line checked.
+  3j. The MoE, MLA, SSM and hybrid configs at full width, bf16, random
+     weights from a seeded CUDA generator (the router, ``a_log``,
+     ``d_skip`` and ``dt_bias`` float32), one at a time, cut in depth
+     only (``ARCH_MODELS``): ``phi35_moe`` 8 of 32 layers, ``deepseek_v3``
+     4 of 61 (3 MLA + MLP, then MLA + MoE of 256 experts with a shared
+     one), ``jamba15_large`` 2 of 72 (attention + MLP, then SSM + MoE),
+     ``mamba2_130m`` whole. Each: the prefill ``forward`` at B = 1, S =
+     2,048 timed by CUDA events with its launches zeroed just before and
+     read just after (one ``wgmma_bf16`` per attention or MLA layer: 8, 4,
+     1, 0; nothing else), beside ``model_flops + attention_flops`` over 989
+     TFLOP/s, finite logits, a profile; a hooked forward holding every
+     attention or MLA core to ``ref.causal_attention`` (MLA on its
+     unpadded v); the first MoE layer's routing equal to a numpy rule on
+     its router logits (ids, kept and dropped assignments) and its output
+     within 2^-5 of max |value| (mean 2^-6) of a float32 per-expert loop
+     with the same drops; ``deepseek_v3``'s first MLA layer: 32 absorbed
+     decode steps within 2^-5 of ``mla_fwd`` (the flash kernel at its
+     shape is timed in phase 2);
+     the first SSM layer of ``mamba2_130m`` and ``jamba15_large`` alone:
+     64 ``ssm_decode`` steps at batch 2 within 2^-5 of ``ssm_fwd`` (mean
+     2^-7); ``mamba2_130m``: 64 decode steps at batch 2 against the
+     prefill, bf16 within 0.5 of max |logit| (``SSM_DECODE_BF16``: the
+     reference's own drift reaches 0.36) and float32 within 1e-3. Then the serve loop and a profiled decode step for
+     ``mamba2_130m`` and ``phi35_moe``, and the launcher's ``main
+     --device cuda`` for both.
   4. Where the time goes: a warm Bloom pass (and the [T, k] gather
      kernel's time per launch in it), a Bloom sketch build, warm k-Hash
      and 1-Hash-naive passes, the scale-21 4-clique pass, the exact
@@ -230,9 +257,11 @@ SHARD_RANKS = (2, 4, 8)
 
 #: phase 2's attention cells: the prefill_32k cell of these configs, one
 #: sequence of its global batch; gemma_2b's sequence cut to its published
-#: context of 8,192 tokens (arXiv:2403.08295) (see ``attention_shapes``)
-ATTN_ARCHS = ("qwen3_8b", "h2o_danube3_4b", "gemma_2b")
-ATTN_CONTEXT = {"gemma_2b": 8192}
+#: context of 8,192 tokens (arXiv:2403.08295), deepseek_v3's (MLA: H = KV
+#: = 128, D = qk_nope + qk_rope = 192, v padded to it) to phase 3j's
+#: prefill length (see ``attention_shapes``)
+ATTN_ARCHS = ("qwen3_8b", "h2o_danube3_4b", "gemma_2b", "deepseek_v3")
+ATTN_CONTEXT = {"gemma_2b": 8192, "deepseek_v3": 2048}
 #: the float32 route's timing length, at qwen3_8b's heads
 ATTN_FP32_SEQ = 4096
 #: bound on the mean |kernel - plain| of a bfloat16 case (see attn_tol)
@@ -250,6 +279,37 @@ SERVE_PROMPTS, SERVE_TOKENS, SERVE_MAX_LEN, SERVE_TEMPERATURE = \
 FP32_LAYERS = 4
 #: phase 3i: decode steps profiled at the serving batch
 PROFILE_STEPS = 4
+
+#: phase 3j: the MoE, MLA, SSM and hybrid configs at full width, cut in
+#: depth only: (arch, layers run)
+ARCH_MODELS = (("phi35_moe", 8), ("deepseek_v3", 4), ("jamba15_large", 2),
+               ("mamba2_130m", 24))
+#: phase 3j: the prefill length (a multiple of ssm_chunk 64), MLA's
+#: absorbed-decode check's positions, and the configs served
+ARCH_SEQ, MLA_DECODE_POS = 2048, 32
+ARCH_SERVED = ("mamba2_130m", "phi35_moe")
+#: phase 3j: the weights a bf16 model keeps in float32 (the reference's)
+FLOAT32_LEAVES = ("router", "a_log", "d_skip", "dt_bias")
+#: phase 3j bounds, shares of the float32 result's max |value| (and, for
+#: the MoE, of its mean |value|): see check_moe_layer, check_mla_decode
+MOE_BF16_TOL, MOE_BF16_MEAN_TOL, MLA_DECODE_TOL = 2.0 ** -5, 2.0 ** -6, \
+    2.0 ** -5
+#: phase 3j: mamba2_130m's decode against its prefill, shares of max
+#: |logit|. bf16: 0.5. The reference's own bf16 decode and prefill lie
+#: 0.171-0.359 apart at full width on the CPU (five weight draws; the port
+#: 0.155-0.383 on the same weights; tests/bf16_drift.py), beyond 3i's
+#: 2L·2^-8 = 0.1875 in four of five: an SSD layer's bf16 error is 3-5
+#: times an attention or MLP sublayer's, and the stack carries it with a
+#: gain above 1. So the model-level bf16 check catches gross faults only;
+#: the SSM layer alone (SSM_LAYER_TOL) bounds the bf16 path. float32 (the
+#: same config, fresh weights): 1e-3, the check of the algorithm itself.
+SSM_DECODE_BF16, SSM_DECODE_FP32 = 0.5, 1e-3
+#: phase 3j: the first SSM layer alone, bf16: its ssm_decode steps against
+#: its ssm_fwd on the same input, max |diff| within 2^-5 of max |forward|
+#: and mean within 2^-7 of mean |forward|. The reference's own at
+#: mamba2_130m's width on the CPU: max 0.8-1.7%, mean 0.61-0.65% (the
+#: port's 0.45-0.74%, 0.29-0.31%; tests/bf16_drift.py).
+SSM_LAYER_TOL, SSM_LAYER_MEAN_TOL = 2.0 ** -5, 2.0 ** -7
 
 #: why a row's ``library_ms`` is null: no single PyTorch call computes it
 NO_LIBRARY = {
@@ -3178,14 +3238,22 @@ def profile_run(torch, fn, wall_s: float, top: int = 6):
 
 
 def hook_attention_cores(torch, ref, model, dtype_name: str, errs: list):
-    """On every layer's attention core, a forward hook that holds the
-    kernel's output against ``ref.causal_attention`` on the layer's own q,
-    k, v under phase 2's tolerance for ``dtype_name``; each layer's max
-    and mean error go to ``errs``. Returns the hooks' handles."""
+    """On every attention or MLA layer's core, a forward hook that holds
+    the kernel's output against ``ref.causal_attention`` on the layer's
+    own q, k, v under phase 2's tolerance for ``dtype_name``; each layer's
+    max and mean error go to ``errs``. MLA's v (head dim 128 against q's
+    192) is the core's unpadded input: the plain version takes it padded
+    with zeros and its output is cut to 128, the core's output width.
+    Returns the hooks' handles."""
+    import torch.nn.functional as F
+
     def check(i):
         def hook(core, inputs, out):
             q, k, v = inputs
-            want = ref.causal_attention(q, k, v, core.window)
+            dv = v.shape[-1]
+            want = ref.causal_attention(
+                q, k, F.pad(v, (0, q.shape[-1] - dv)), core.window
+            )[..., :dv]
             diff = (out.float() - want.float()).abs()
             e, mean = float(diff.max()), float(diff.mean())
             errs.append((i, e, mean))
@@ -3197,20 +3265,138 @@ def hook_attention_cores(torch, ref, model, dtype_name: str, errs: list):
                     f"plain| {e}, mean {mean}")
         return hook
     return [layer.mixer.core.register_forward_hook(check(i))
-            for i, layer in enumerate(model.layers)]
+            for i, layer in enumerate(model.layers)
+            if hasattr(layer.mixer, "core")]
 
 
-def step_bytes(model, cfg, batch: int, cache_len: int) -> int:
+def step_bytes(model, cfg, cache) -> int:
     """Bytes one decode step must move: every weight read once, except the
     token embedding, of which only the batch's rows are read (all of it
-    when tied: it is the head too), and the KV cache read once."""
+    when tied: it is the head too), and an MoE layer's experts, of which a
+    step must read at least the top k; and the cache read once."""
     total = sum(p.numel() * p.element_size() for p in model.parameters())
+    batch = cache["layers"][0][next(iter(cache["layers"][0]))].shape[0]
     emb = model.embed
     if not cfg.tie_embeddings:
         total -= (emb.shape[0] - batch) * emb.shape[1] * emb.element_size()
-    cache = (2 * cfg.num_layers * batch * cache_len * cfg.num_kv_heads
-             * cfg.head_dim * emb.element_size())
-    return total + cache
+    for layer in model.layers:
+        if layer.sig[1] == "moe":
+            unread = cfg.moe_num_experts - cfg.moe_top_k
+            total -= sum(w[:unread].numel() * w.element_size() for w in
+                         (layer.ffn.wi_gate, layer.ffn.wi_up, layer.ffn.wo))
+    return total + sum(t.numel() * t.element_size()
+                       for lc in cache["layers"] for t in lc.values())
+
+
+def decode_against_prefill(torch, model, cfg, gen, since, bound=None,
+                           why="2L·2^-8") -> dict:
+    """``DECODE_TOKENS`` teacher-forced ``decode_step``s at batch
+    ``DECODE_BATCH`` against the ``forward`` logits on the same random
+    tokens: within ``bound`` of max |logit|, by default 2L·2^-8, one bf16
+    rounding (2^-9 a side) of each of the 2L sublayers' outputs carried to
+    the logits at gain 1 (top-1 agreement printed). Call under
+    ``torch.inference_mode``."""
+    from repro_torch.models import decode_step, forward, init_cache
+
+    tokens = torch.randint(0, cfg.vocab_size, (DECODE_BATCH, DECODE_TOKENS),
+                           device="cuda", generator=gen)
+    full = forward(model, cfg, tokens)[..., :cfg.vocab_size].float()
+    cache = init_cache(cfg, DECODE_BATCH, DECODE_TOKENS, device="cuda")
+    steps = []
+    for i in range(DECODE_TOKENS):
+        lg, cache = decode_step(model, cache, cfg, tokens[:, i:i + 1])
+        steps.append(lg[:, 0, :cfg.vocab_size].float())
+    dec = torch.stack(steps, dim=1)
+    del steps, cache
+    diff = (dec - full).abs()
+    err, mean = float(diff.max()), float(diff.mean())
+    scale = float(full.abs().max())
+    if bound is None:
+        bound = 2 * cfg.num_layers * 2.0 ** -8
+    top1 = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
+    del dec, full, diff
+    require(err <= bound * scale,
+            f"{cfg.name} decode vs prefill: max |diff| {err} > {bound} x "
+            f"max |logit| {scale}")
+    print(f"  [{since():.1f} s] {cfg.dtype} decode_step x{DECODE_TOKENS} at "
+          f"batch {DECODE_BATCH} vs forward on the same tokens: max |diff| "
+          f"{err:.4g}, mean {mean:.4g}, max |logit| {scale:.4g} (bound "
+          f"{why} = {bound:.4g} of it); top-1 agreement {top1:.2%}",
+          flush=True)
+    return dict(err=err, mean=mean, scale=scale, bound=bound, top1=top1)
+
+
+def serve_and_profile(torch, np, model, cfg, since, tag: str) -> dict:
+    """The launcher's loop (``launch.serve.generate``) on ``model`` at full
+    width: ``SERVE_PROMPTS`` prompts, ``SERVE_TOKENS`` sampled, max_len
+    ``SERVE_MAX_LEN``; tokens in the vocab; ms a step beside the step's
+    bound (:func:`step_bytes` over 3.35 TB/s). Then ``PROFILE_STEPS``
+    decode steps at that batch, unprofiled and under torch.profiler
+    (launches a step, idle share)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import decode_step, init_cache
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in SERVE_PROMPTS]
+    sample = torch.Generator(device="cuda").manual_seed(1)
+
+    def serve_run(num_tokens):
+        return serve.generate(model, cfg, prompts, num_tokens,
+                              max_len=SERVE_MAX_LEN,
+                              temperature=SERVE_TEMPERATURE,
+                              generator=sample)
+
+    serve_run(1)                           # warm-up: each op at its shapes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = serve_run(SERVE_TOKENS)
+    serve_s = time.perf_counter() - t0
+    require(out.shape == (len(prompts), SERVE_TOKENS) and out.min() >= 0
+            and out.max() < cfg.vocab_size,
+            f"{tag} served tokens: shape {out.shape}, range [{out.min()}, "
+            f"{out.max()}]")
+    n_steps = max(SERVE_PROMPTS) + SERVE_TOKENS
+    step_ms = serve_s / n_steps * 1e3
+    with torch.inference_mode():
+        nbytes = step_bytes(model, cfg, init_cache(
+            cfg, len(prompts), SERVE_MAX_LEN, device="cuda"))
+    step_bound_ms = nbytes / PEAK_BYTES_S * 1e3
+    print(f"  [{since():.1f} s] {tag}serving {len(prompts)} prompts of "
+          f"{list(SERVE_PROMPTS)} tokens, {SERVE_TOKENS} sampled at "
+          f"T={SERVE_TEMPERATURE}, max_len {SERVE_MAX_LEN}: {serve_s:.3f} s "
+          f"for {n_steps} decode steps, {step_ms:.3f} ms a step, "
+          f"{len(prompts) * SERVE_TOKENS / serve_s:.1f} sampled tokens/s; "
+          f"step bound {step_bound_ms:.3f} ms ({nbytes} bytes over "
+          f"{PEAK_BYTES_S:.3g} B/s), {step_bound_ms / step_ms:.2%} of bound",
+          flush=True)
+
+    # where a decode step's time goes: PROFILE_STEPS steps at the serving
+    # batch and cache length, unprofiled, then under the profiler
+    step_in = torch.from_numpy(np.asarray(out[:, :1], np.int64)).cuda()
+
+    def steps():
+        with torch.inference_mode():
+            cache = init_cache(cfg, len(prompts), SERVE_MAX_LEN,
+                               device="cuda")
+            for _ in range(PROFILE_STEPS):
+                _, cache = decode_step(model, cache, cfg, step_in)
+
+    steps()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps()
+    torch.cuda.synchronize()
+    steps_s = time.perf_counter() - t0
+    busy, idle, top, launches = profile_run(torch, steps, steps_s, top=8)
+    print(f"  [{since():.1f} s] {tag}{PROFILE_STEPS} decode steps at batch "
+          f"{len(prompts)}: {steps_s / PROFILE_STEPS * 1e3:.3f} ms a step; "
+          f"profiled: {launches / PROFILE_STEPS:.0f} kernel launches a step, "
+          f"device busy {busy / PROFILE_STEPS * 1e3:.3f} ms a step, idle "
+          f"share {idle:.1%}; top kernels:\n{top}", flush=True)
+    return dict(serve_s=serve_s, step_ms=step_ms, step_bound_ms=step_bound_ms,
+                profiled_step_ms=steps_s / PROFILE_STEPS * 1e3,
+                launches_per_step=launches / PROFILE_STEPS, idle=idle)
 
 
 def phase_model(torch, np, kernels, ref) -> dict:
@@ -3219,9 +3405,7 @@ def phase_model(torch, np, kernels, ref) -> dict:
 
     from repro_torch import configs
     from repro_torch.analysis import roofline
-    from repro_torch.launch import serve
-    from repro_torch.models import (ShapeConfig, decode_step, forward,
-                                    init_cache, init_params)
+    from repro_torch.models import ShapeConfig, forward, init_params
 
     fa = kernels.flash_attention
     t_phase = time.perf_counter()
@@ -3357,91 +3541,12 @@ def phase_model(torch, np, kernels, ref) -> dict:
               f"{max(m for _, _, m in errs):.3g}", flush=True)
 
         # decode against prefill on the same tokens
-        dec_tokens = torch.randint(0, cfg.vocab_size,
-                                   (DECODE_BATCH, DECODE_TOKENS),
-                                   device="cuda", generator=gen)
-        full = forward(model, cfg, dec_tokens)[..., :cfg.vocab_size].float()
-        cache = init_cache(cfg, DECODE_BATCH, DECODE_TOKENS, device="cuda")
-        steps = []
-        for i in range(DECODE_TOKENS):
-            lg, cache = decode_step(model, cache, cfg,
-                                    dec_tokens[:, i:i + 1])
-            steps.append(lg[:, 0, :cfg.vocab_size].float())
-        dec = torch.stack(steps, dim=1)
-        del steps, cache
-        diff = (dec - full).abs()
-        dec_err, dec_mean = float(diff.max()), float(diff.mean())
-        scale = float(full.abs().max())
-        dec_bound = 2 * L * 2.0 ** -8
-        top1 = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
-        del dec, full, diff
-        require(dec_err <= dec_bound * scale,
-                f"decode vs prefill: max |diff| {dec_err} > {dec_bound} x "
-                f"max |logit| {scale}")
-        print(f"  [{since():.1f} s] decode_step x{DECODE_TOKENS} at batch "
-              f"{DECODE_BATCH} vs forward on the same tokens: max |diff| "
-              f"{dec_err:.4g}, mean "
-              f"{dec_mean:.4g}, max |logit| {scale:.4g} (bound 2L·2^-8 = "
-              f"{dec_bound:.4f} of it); top-1 agreement {top1:.2%}",
-              flush=True)
+        dec = decode_against_prefill(torch, model, cfg, gen, since)
+        dec_err, scale, top1 = dec["err"], dec["scale"], dec["top1"]
 
     # serving: the launcher's loop at full width
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
-               for n in SERVE_PROMPTS]
-    sample = torch.Generator(device="cuda").manual_seed(1)
-
-    def serve_run(num_tokens):
-        return serve.generate(model, cfg, prompts, num_tokens,
-                              max_len=SERVE_MAX_LEN,
-                              temperature=SERVE_TEMPERATURE,
-                              generator=sample)
-
-    serve_run(1)                           # warm-up: each op at its shapes
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = serve_run(SERVE_TOKENS)
-    serve_s = time.perf_counter() - t0
-    require(out.shape == (len(prompts), SERVE_TOKENS) and out.min() >= 0
-            and out.max() < cfg.vocab_size,
-            f"served tokens: shape {out.shape}, range [{out.min()}, "
-            f"{out.max()}]")
-    n_steps = max(SERVE_PROMPTS) + SERVE_TOKENS
-    step_ms = serve_s / n_steps * 1e3
-    nbytes = step_bytes(model, cfg, len(prompts), SERVE_MAX_LEN)
-    step_bound_ms = nbytes / PEAK_BYTES_S * 1e3
-    print(f"  [{since():.1f} s] serving {len(prompts)} prompts of "
-          f"{list(SERVE_PROMPTS)} tokens, {SERVE_TOKENS} sampled at "
-          f"T={SERVE_TEMPERATURE}, max_len {SERVE_MAX_LEN}: {serve_s:.3f} s "
-          f"for {n_steps} decode steps, {step_ms:.3f} ms a step, "
-          f"{len(prompts) * SERVE_TOKENS / serve_s:.1f} sampled tokens/s; "
-          f"step bound {step_bound_ms:.3f} ms ({nbytes} bytes over "
-          f"{PEAK_BYTES_S:.3g} B/s), {step_bound_ms / step_ms:.2%} of bound",
-          flush=True)
-
-    # where a decode step's time goes: PROFILE_STEPS steps at the serving
-    # batch and cache length, unprofiled, then under the profiler
-    step_in = torch.from_numpy(np.asarray(out[:, :1], np.int64)).cuda()
-
-    def steps():
-        with torch.inference_mode():
-            cache = init_cache(cfg, len(prompts), SERVE_MAX_LEN,
-                               device="cuda")
-            for _ in range(PROFILE_STEPS):
-                _, cache = decode_step(model, cache, cfg, step_in)
-
-    steps()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    steps()
-    torch.cuda.synchronize()
-    steps_s = time.perf_counter() - t0
-    busy, idle, top, launches = profile_run(torch, steps, steps_s, top=8)
-    print(f"  [{since():.1f} s] {PROFILE_STEPS} decode steps at batch "
-          f"{len(prompts)}: {steps_s / PROFILE_STEPS * 1e3:.3f} ms a step; "
-          f"profiled: {launches / PROFILE_STEPS:.0f} kernel launches a step, "
-          f"device busy {busy / PROFILE_STEPS * 1e3:.3f} ms a step, idle "
-          f"share {idle:.1%}; top kernels:\n{top}", flush=True)
+    served = serve_and_profile(torch, np, model, cfg, since, "")
+    step_ms, step_bound_ms = served["step_ms"], served["step_bound_ms"]
     phase_peak = max(init_peak, torch.cuda.max_memory_allocated())
     del model
     torch.cuda.empty_cache()
@@ -3497,9 +3602,366 @@ def phase_model(torch, np, kernels, ref) -> dict:
                fp32_launches=fp32_routes["fma_fp32"], bf16_err=bf16_err,
                fp32_err=fp32_err, dec_err=dec_err, dec_scale=scale,
                top1=top1, step_ms=step_ms, step_bound_ms=step_bound_ms,
-               serve_s=serve_s, phase_s=time.perf_counter() - t_phase)
+               serve_s=served["serve_s"],
+               phase_s=time.perf_counter() - t_phase)
     print(f"phase 3i: {out['phase_s']:.1f} s in all, peak memory "
           f"{phase_peak} bytes ({smi_line()})", flush=True)
+    return out
+
+
+def numpy_routing(np, logits, k: int, cap: int):
+    """The reference's MoE routing as a numpy rule on the router's float32
+    logits [t, E]: each token's k largest logits (the softmax keeps their
+    order; ties to the smaller expert id), gates their softmax
+    probabilities renormalised (float64), each assignment's rank within its
+    expert counted in token order, kept below ``cap``."""
+    lg = logits.astype(np.float64)
+    idx = np.argsort(-lg, axis=1, kind="stable")[:, :k]
+    p = np.exp(lg - lg.max(axis=1, keepdims=True))
+    gates = np.take_along_axis(p, idx, axis=1)
+    gates /= gates.sum(axis=1, keepdims=True)
+    seen = np.zeros(lg.shape[1], np.int64)
+    rank = np.empty(idx.size, np.int64)
+    for i, ex in enumerate(idx.reshape(-1).tolist()):
+        rank[i] = seen[ex]
+        seen[ex] += 1
+    return idx, gates, rank, rank < cap
+
+
+def moe_float32(torch, moe, cfg, xt, idx, gates, keep):
+    """The MoE layer over ``xt`` [t, d] in float32, expert by expert: each
+    kept assignment's token through its expert's SiLU-gated MLP, weighted
+    by its gate and summed per token; plus the shared expert."""
+    import torch.nn.functional as F
+
+    require(cfg.act == "silu", f"{cfg.name}: act {cfg.act}")
+    k = cfg.moe_top_k
+    x = xt.float()
+    y = torch.zeros_like(x)
+    tok = torch.arange(idx.numel(), device=x.device) // k
+    flat, g = idx.reshape(-1), gates.reshape(-1)
+    for ex in range(cfg.moe_num_experts):
+        sel = ((flat == ex) & keep).nonzero()[:, 0]
+        if sel.numel():
+            xe = x[tok[sel]]
+            h = F.silu(xe @ moe.wi_gate[ex].float()) * (
+                xe @ moe.wi_up[ex].float())
+            y.index_add_(0, tok[sel], (h @ moe.wo[ex].float())
+                         * g[sel, None])
+    if cfg.moe_shared_experts:
+        sh = moe.shared
+        y += (F.silu(x @ sh.wi_gate.float()) * (x @ sh.wi_up.float())) \
+            @ sh.wo.float()
+    return y
+
+
+def check_moe_layer(torch, np, moe, cfg, x, y, since) -> dict:
+    """One full-width MoE layer's call on its own input ``x`` [1, S, d]
+    (output ``y``): its routing (``moe_route``, the function ``moe_fwd``
+    calls) equal to :func:`numpy_routing` on its logits, ids, kept and
+    dropped assignments; ``y`` against :func:`moe_float32` with the same
+    drops. Bound: the bf16 layer rounds its dispatched rows' products, the
+    activation, the gated product, the expert output, the gate and the
+    weighted sum to bf16, about ten roundings of 2^-9 between input and
+    output: max |bf16 - float32| <= MOE_BF16_TOL (2^-5) of max |float32|,
+    mean <= MOE_BF16_MEAN_TOL (2^-6) of its mean |value|."""
+    from repro_torch.models import layers as L
+
+    t = x.shape[0] * x.shape[1]
+    xt = x.reshape(t, -1)
+    r = L.moe_route(moe, xt, cfg)
+    idx, gates, rank, keep = numpy_routing(np, r.logits.cpu().numpy(),
+                                           cfg.moe_top_k, r.cap)
+    got_keep = r.keep.cpu().numpy()
+    require(np.array_equal(r.idx.cpu().numpy(), idx)
+            and np.array_equal(r.rank.cpu().numpy(), rank)
+            and np.array_equal(got_keep, keep),
+            f"{cfg.name} routing differs from the numpy rule: ids "
+            f"{int((r.idx.cpu().numpy() != idx).sum())}, kept "
+            f"{int(got_keep.sum())} vs {int(keep.sum())}")
+    kept, dropped = int(keep.sum()), int((~keep).sum())
+    want = moe_float32(torch, moe, cfg, xt, torch.from_numpy(idx).cuda(),
+                       torch.from_numpy(gates).float().cuda(),
+                       torch.from_numpy(keep).cuda())
+    diff = (y.reshape(t, -1).float() - want).abs()
+    err, mean = float(diff.max()), float(diff.mean())
+    scale, mean_ref = float(want.abs().max()), float(want.abs().mean())
+    require(err <= MOE_BF16_TOL * scale and mean <= MOE_BF16_MEAN_TOL
+            * mean_ref, f"{cfg.name} MoE layer vs float32 loop: max "
+            f"{err} (max |ref| {scale}), mean {mean} (mean |ref| "
+            f"{mean_ref})")
+    used = int((np.bincount(idx[keep.reshape(idx.shape)],
+                            minlength=cfg.moe_num_experts) > 0).sum())
+    print(f"  [{since():.1f} s] one MoE layer ({cfg.moe_num_experts} "
+          f"experts, top-{cfg.moe_top_k}, d_ff {cfg.moe_d_ff}, "
+          f"{cfg.moe_shared_experts} shared) on its {t} tokens: routing "
+          f"equal to the numpy rule ({t * cfg.moe_top_k} assignments, cap "
+          f"{r.cap}: {kept} kept, {dropped} dropped, {used} experts used); "
+          f"output vs the float32 per-expert loop: max |diff| {err:.4g} of "
+          f"max |ref| {scale:.4g} ({err / scale:.3%}; bound 2^-5), mean "
+          f"{mean:.4g} of {mean_ref:.4g} ({mean / mean_ref:.3%}; bound "
+          f"2^-6)", flush=True)
+    return dict(kept=kept, dropped=dropped, cap=r.cap, err=err, scale=scale,
+                mean=mean, mean_ref=mean_ref)
+
+
+def check_mla_decode(torch, mixer, cfg, gen, since) -> dict:
+    """The first MLA layer alone: ``MLA_DECODE_POS`` absorbed
+    ``mla_decode`` steps against ``mla_fwd`` (the flash kernel) on the same
+    unit-RMS bf16 input, as the layer sees after its norm. The two paths
+    round at different places (the expanded k and v against the absorbed
+    query and context, each a bf16 rounding of 2^-9 on the way to about
+    eight such roundings a side): max |decode - forward| <= MLA_DECODE_TOL
+    (2^-5) of max |forward|."""
+    from repro_torch.models import layers as L
+
+    n = MLA_DECODE_POS
+    x = torch.randn((1, n, cfg.d_model), device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    pos = torch.arange(n, dtype=torch.int32, device="cuda")[None]
+    fwd = L.mla_fwd(mixer, x, cfg, pos).float()
+    cache = L.init_mla_cache(cfg, 1, n, torch.bfloat16, "cuda")
+    dec = torch.cat([L.mla_decode(mixer, x[:, i:i + 1], cache, cfg, i)
+                     for i in range(n)], dim=1).float()
+    err, scale = float((dec - fwd).abs().max()), float(fwd.abs().max())
+    require(err <= MLA_DECODE_TOL * scale,
+            f"MLA absorbed decode vs mla_fwd: max |diff| {err} > 2^-5 x "
+            f"{scale}")
+    print(f"  [{since():.1f} s] first MLA layer alone: {n} absorbed "
+          f"mla_decode steps vs mla_fwd on the same input: max |diff| "
+          f"{err:.4g} of max |forward| {scale:.4g} ({err / scale:.3%}; "
+          f"bound 2^-5)", flush=True)
+    return dict(err=err, scale=scale)
+
+
+def check_ssm_decode(torch, mixer, cfg, gen, since) -> dict:
+    """The first SSM layer alone: ``DECODE_TOKENS`` ``ssm_decode`` steps at
+    batch ``DECODE_BATCH`` against ``ssm_fwd`` on the same unit-normal bf16
+    input. The two round apart (the prefill rounds wmat, the decode carries
+    its state in float32 step by step): max |decode - forward| <=
+    SSM_LAYER_TOL (2^-5) of max |forward|, mean <= SSM_LAYER_MEAN_TOL
+    (2^-7) of mean |forward|."""
+    from repro_torch.models import ssm as S
+
+    x = torch.randn((DECODE_BATCH, DECODE_TOKENS, cfg.d_model),
+                    device="cuda", generator=gen).to(torch.bfloat16)
+    fwd = S.ssm_fwd(mixer, x, cfg).float()
+    cache = S.init_ssm_cache(cfg, DECODE_BATCH, torch.bfloat16, "cuda")
+    dec = torch.cat([S.ssm_decode(mixer, x[:, i:i + 1], cache, cfg)
+                     for i in range(DECODE_TOKENS)], dim=1).float()
+    diff = (dec - fwd).abs()
+    err, mean = float(diff.max()), float(diff.mean())
+    scale, mean_ref = float(fwd.abs().max()), float(fwd.abs().mean())
+    require(err <= SSM_LAYER_TOL * scale
+            and mean <= SSM_LAYER_MEAN_TOL * mean_ref,
+            f"{cfg.name} SSM layer decode vs ssm_fwd: max |diff| {err} "
+            f"(max |forward| {scale}), mean {mean} (mean |forward| "
+            f"{mean_ref})")
+    print(f"  [{since():.1f} s] first SSM layer alone: {DECODE_TOKENS} "
+          f"ssm_decode steps at batch {DECODE_BATCH} vs ssm_fwd on the same "
+          f"input: max |diff| {err:.4g} of max |forward| {scale:.4g} "
+          f"({err / scale:.3%}; bound 2^-5), mean {mean:.4g} of {mean_ref:.4g}"
+          f" ({mean / mean_ref:.3%}; bound 2^-7)", flush=True)
+    return dict(err=err, scale=scale, mean=mean, mean_ref=mean_ref)
+
+
+def phase_arch(torch, np, kernels, ref, arch: str, layers: int,
+               since) -> dict:
+    """Phase 3j for one config: full width, the first ``layers`` layers,
+    bf16 weights from a seeded CUDA generator (float32 where the reference
+    keeps them). The prefill ``forward`` at B = 1, S = ``ARCH_SEQ`` timed
+    by CUDA events with the launch counts zeroed just before and read just
+    after (one ``wgmma_bf16`` launch per attention or MLA layer, nothing
+    else), beside its flop bound, and profiled; a second forward with
+    every attention core hooked (:func:`hook_attention_cores`) and the
+    first MoE layer's input and output kept for :func:`check_moe_layer`;
+    then MLA's absorbed decode (deepseek_v3), the first SSM layer's decode
+    against its prefill (mamba2_130m, jamba15_large), the model's decode
+    against its prefill (mamba2_130m), and the serving loop
+    (``ARCH_SERVED``)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.analysis import roofline
+    from repro_torch.models import ShapeConfig, forward, init_params
+
+    fa = kernels.flash_attention
+    full = configs.get(arch)
+    cfg = dataclasses.replace(full, num_layers=layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    model = init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sigs = [layer.sig for layer in model.layers]
+    n_attn = sum(m in ("attn", "mla") for m, _ in sigs)
+    n_weights = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    wrong = [name for name, p in model.named_parameters()
+             if p.requires_grad or p.dtype != (
+                 torch.float32 if name.rsplit(".", 1)[-1] in FLOAT32_LEAVES
+                 else torch.bfloat16)]
+    require(not wrong, f"{arch}: weights of the wrong type {wrong[:4]}")
+    kinds = {}
+    for sig in sigs:
+        kinds["+".join(sig)] = kinds.get("+".join(sig), 0) + 1
+    print(f"phase 3j: {arch} at full width (d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}), depth cut to {layers} of {full.num_layers} "
+          f"layers ({', '.join(f'{n} {k}' for k, n in kinds.items())}): "
+          f"{n_weights} weights (total_params() of the cut config "
+          f"{cfg.total_params()}), {weight_bytes} bytes, drawn in "
+          f"{init_s:.2f} s", flush=True)
+
+    shape = ShapeConfig(f"prefill_{ARCH_SEQ // 1024}k", ARCH_SEQ, 1,
+                        "prefill")
+    flops = (roofline.model_flops(cfg, shape)
+             + roofline.attention_flops(cfg, shape))
+    bound_s = flops / roofline.PEAK_FLOPS_BF16
+    tokens = torch.randint(0, cfg.vocab_size, (1, ARCH_SEQ), device="cuda",
+                           generator=gen)
+    out = dict(layers=layers, of=full.num_layers, weights=n_weights,
+               weight_bytes=weight_bytes, init_s=init_s, bound_s=bound_s,
+               flash_layers=n_attn)
+    with torch.inference_mode():
+        logits = forward(model, cfg, tokens)             # warm-up
+        torch.cuda.synchronize()
+        del logits
+        times = []
+        for rep in range(3):
+            if rep == 0:
+                kernels.reset_launch_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits = forward(model, cfg, tokens)
+            stop.record()
+            stop.synchronize()
+            times.append(start.elapsed_time(stop) / 1e3)
+            if rep == 0:
+                routes = dict(fa.ROUTE_LAUNCHES)
+                others = {k: n for k, n in kernels.launch_counts().items()
+                          if n and k != "flash_attention"}
+                require(routes == {"wgmma_bf16": n_attn, "fma_fp32": 0}
+                        and not others,
+                        f"the {arch} forward launched {routes}, {others}; "
+                        f"expected {n_attn} wgmma_bf16 and nothing else")
+                ends = torch.stack([logits[..., :cfg.vocab_size].amax(),
+                                    logits[..., :cfg.vocab_size].amin()])
+                require(tuple(logits.shape) == (1, ARCH_SEQ,
+                                                cfg.padded_vocab)
+                        and bool(torch.isfinite(ends).all())
+                        and bool((logits[..., cfg.vocab_size:]
+                                  == -1e30).all()),
+                        f"{arch} prefill logits: shape, finite values or pad "
+                        f"mask")
+            del logits
+        prefill_s = sorted(times)[1]
+        busy, idle, top, _ = profile_run(
+            torch, lambda: forward(model, cfg, tokens), prefill_s, top=6)
+        out.update(prefill_s=prefill_s, times=times, launches=routes,
+                   idle=idle, busy_s=busy)
+        print(f"  [{since():.1f} s] prefill B=1 S={ARCH_SEQ}: {prefill_s:.4f}"
+              f" s (median of {[round(t, 4) for t in times]}; events), "
+              f"{ARCH_SEQ / prefill_s:.0f} tokens/s; bound {bound_s:.4f} s "
+              f"({flops:.4g} flop: model_flops + attention_flops over "
+              f"{roofline.PEAK_FLOPS_BF16:.4g} flop/s), "
+              f"{bound_s / prefill_s:.2%} of bound; launches {routes}; "
+              f"profiled: device busy {busy * 1e3:.3f} ms, idle share "
+              f"{idle:.1%}; top kernels:\n{top}", flush=True)
+
+        # every attention core against the plain version, and the first
+        # MoE layer's own input and output
+        errs, moe_io = [], {}
+        handles = hook_attention_cores(torch, ref, model, "bfloat16", errs)
+        first_moe = next((layer.ffn for layer in model.layers
+                          if layer.sig[1] == "moe"), None)
+        def keep_moe_io(module, inputs, y):
+            moe_io.setdefault("io", (inputs[0], y))
+
+        if first_moe is not None:
+            handles.append(first_moe.register_forward_hook(keep_moe_io))
+        try:
+            logits = forward(model, cfg, tokens)
+            torch.cuda.synchronize()
+            del logits
+        finally:
+            for handle in handles:
+                handle.remove()
+        require(len(errs) == n_attn, f"{arch}: hooked {len(errs)} cores")
+        if errs:
+            out["flash_err"] = max(e for _, e, _ in errs)
+            print(f"  [{since():.1f} s] every attention/MLA layer's kernel "
+                  f"output within phase 2's bf16 tolerance of "
+                  f"ref.causal_attention on its own q, k, v: max |kernel - "
+                  f"plain| {out['flash_err']:.4g} (layer "
+                  f"{max(errs, key=lambda r: r[1])[0]}), largest mean "
+                  f"{max(m for _, _, m in errs):.3g}", flush=True)
+        if first_moe is not None:
+            out["moe"] = check_moe_layer(torch, np, first_moe, cfg,
+                                         *moe_io.pop("io"), since)
+        if cfg.mla:
+            out["mla_decode"] = check_mla_decode(
+                torch, model.layers[0].mixer, cfg, gen, since)
+        if cfg.ssm:
+            out["ssm_decode"] = check_ssm_decode(
+                torch, next(layer.mixer for layer in model.layers
+                            if layer.sig[0] == "ssm"), cfg, gen, since)
+        if not n_attn:
+            out["decode"] = decode_against_prefill(
+                torch, model, cfg, gen, since, bound=SSM_DECODE_BF16,
+                why="the reference's own drift, 0.17-0.36, with room")
+            cfg32 = dataclasses.replace(cfg, dtype="float32")
+            model32 = init_params(cfg32, gen, device="cuda")
+            out["decode32"] = decode_against_prefill(
+                torch, model32, cfg32, gen, since, bound=SSM_DECODE_FP32,
+                why="1e-3")
+            del model32
+    if arch in ARCH_SERVED:
+        out["serve"] = serve_and_profile(torch, np, model, cfg, since,
+                                         f"{arch} ")
+    out["peak"] = torch.cuda.max_memory_allocated()
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_archs(torch, np, kernels, ref) -> dict:
+    """Phase 3j: the MoE, MLA, SSM and hybrid configs at full width, one
+    at a time (each freed before the next), then the launcher's ``main``
+    with ``--device cuda`` for ``ARCH_SERVED``."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+
+    t_phase = time.perf_counter()
+
+    def since():
+        return time.perf_counter() - t_phase
+
+    archs = {arch: phase_arch(torch, np, kernels, ref, arch, layers, since)
+             for arch, layers in ARCH_MODELS}
+    for arch in ARCH_SERVED:
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            toks = serve.main(["--arch", arch, "--device", "cuda"])
+        first = (text.getvalue().splitlines() or [""])[0]
+        require(toks.shape == (4, 32) and re.fullmatch(
+            r"generated \(4, 32\) in [0-9.]+s \([0-9.]+ tok/s\) on cuda:0",
+            first), f"serve main --arch {arch}: {toks.shape}, {first!r}")
+        print(f"  [{since():.1f} s] launch.serve main --arch {arch} --device "
+              f"cuda: {first!r}", flush=True)
+    out = dict(archs=archs, phase_s=time.perf_counter() - t_phase,
+               bf16_launches=sum(a["launches"]["wgmma_bf16"]
+                                 for a in archs.values()),
+               peak=max(a["peak"] for a in archs.values()))
+    print(f"phase 3j: {out['phase_s']:.1f} s in all, "
+          f"{out['bf16_launches']} wgmma_bf16 launches in the four "
+          f"prefills, peak memory {out['peak']} bytes ({smi_line()})",
+          flush=True)
     return out
 
 
@@ -3587,6 +4049,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     model = phase_model(torch, np, kernels, ref)
     timing["flash_attention_wgmma"]["model_ms"] = model["attn_ms"]
+    archs = phase_archs(torch, np, kernels, ref)
     g12, exact = phase_reference(torch, np, TE, TG, sketches)
     phase_reference_exact(torch, np, TE, g12, exact)
     phase_reference_minhash(torch, np, TE, g12, exact)
@@ -3634,7 +4097,12 @@ def main() -> None:
           f"+ {model['fp32_launches']} fma_fp32 launches, decode "
           f"{model['step_ms']:.3f} ms a step (bound "
           f"{model['step_bound_ms']:.3f} ms), peak {model['phase_peak']} "
-          f"bytes, {model['phase_s']:.1f} s"
+          f"bytes, {model['phase_s']:.1f} s; phase 3j "
+          + ", ".join(f"{arch} ({a['layers']} of {a['of']} layers) prefill "
+                      f"S={ARCH_SEQ} {a['prefill_s']:.4f} s (bound "
+                      f"{a['bound_s']:.4f} s), {a['launches']['wgmma_bf16']} "
+                      f"wgmma_bf16" for arch, a in archs["archs"].items())
+          + f", {archs['phase_s']:.1f} s"
           + f"; total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # each row: the kernel's launches on the paths that run it, each path
@@ -3737,10 +4205,12 @@ def main() -> None:
     # phase 3h: mine() and the sharded fold at world size 1 (AND2 gather)
     sharded_rows = {"fused_gather_popcount": sharded["launches"],
                     "bf_edge_intersect": sharded["launches"]}
-    # phase 3i: the full-width forward (bf16) and the float32 route's
-    # forward; the hooked bf16 forward that holds each layer to the plain
-    # version is not counted
-    model_rows = {"flash_attention_wgmma": model["bf16_launches"],
+    # phases 3i and 3j: the full-width forwards (bf16: qwen3_8b, then the
+    # four prefills of 3j) and the float32 route's forward; the hooked
+    # forwards that hold each layer to the plain version, and 3j's MLA
+    # checks, are not counted
+    model_rows = {"flash_attention_wgmma": model["bf16_launches"]
+                  + archs["bf16_launches"],
                   "flash_attention": model["fp32_launches"]}
     rows = [(name, source, replaces, launches + stream_rows.get(name, 0)
              + adaptive_rows.get(name, 0) + linkpred_rows.get(name, 0)
@@ -3771,7 +4241,8 @@ def main() -> None:
            if key in ("kernel", "gather_ms", "bound_ms_tuples", "model_ms",
                       "old_route_ms", "warm_ms", "real_rows", "deep_ms",
                       "deep_warm_ms", "deep_real_rows", "khash_gather_ms",
-                      "khash_gather_warm_ms") or key.startswith("clique_")},
+                      "khash_gather_warm_ms")
+           or key.startswith("clique_")},
     } for name, source, replaces, launches in rows]
     print(smi)
     print(json.dumps({"kernels": records}))

@@ -109,8 +109,12 @@ def model_params_from_numpy(params, cfg,
                             device: DeviceLike = DEFAULT_DEVICE):
     """A port :class:`~repro_torch.models.Model` holding the numbers of the
     reference's ``init_params`` tree (leaves as numpy arrays, or anything
-    ``np.asarray`` takes). Every leaf must match a weight of the port's
-    model in name and shape, and every weight must be given."""
+    ``np.asarray`` takes), any of its layer signatures (attention, MLA,
+    SSM; MLP, MoE with its shared expert). Every leaf must match a weight
+    of the port's model in name and shape, and every weight must be given.
+    Each weight keeps the port's type, which is the reference leaf's: the
+    MoE router and the SSM's ``a_log``, ``d_skip`` and ``dt_bias`` stay
+    float32 in a bf16 model."""
     from .models.model import Model
 
     dev = resolve_device(device)

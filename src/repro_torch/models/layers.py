@@ -1,24 +1,26 @@
-"""Dense transformer building blocks: norms, RoPE/M-RoPE, attention (GQA,
-MQA, qk-norm, sliding window) and the gated MLP.
+"""Transformer building blocks: norms, RoPE/M-RoPE, attention (GQA, MQA,
+qk-norm, sliding window), MLA with the absorbed decode, the gated MLP and
+the MoE with sort-based capacity dispatch.
 
-The port of the dense part of ``repro.models.layers``. Each block is an
+The port of ``repro.models.layers``. Each block is an
 ``nn.Module`` holding its weights under the reference's names and shapes
 (``wq`` [d, H, D], ``wo`` [H, D, d], ...), so a reference parameter tree
 carries across leaf by leaf (:func:`repro_torch.convert.model_params_from_numpy`).
 The functions under the reference's names (``attention_fwd``,
-``attention_decode``, ``mlp_fwd``, ...) take the module as ``p``; the
-modules' ``forward`` calls them.
+``attention_decode``, ``mla_fwd``, ``moe_fwd``, ...) take the module as
+``p``; the modules' ``forward`` calls them.
 
-Prefill attention runs through :class:`AttentionCore`, the only caller of
-the flash kernel on the model's path: CUDA tensors launch the kernel,
-CPU tensors run its plain version. Decode attention (one query against the
-cache) is plain torch, as the reference computes it outside any kernel.
-MLA and MoE wait for a later slice of the port.
+Prefill attention, MLA's included, runs through :class:`AttentionCore`,
+the only caller of the flash kernel on the model's path: CUDA tensors
+launch the kernel, CPU tensors run its plain version. Decode attention
+(one query against the cache) and the MoE's expert products are plain
+torch, as the reference computes them outside any kernel. The MoE's
+``moe_aux_loss`` waits for training (ROADMAP Queue 1, item 3).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -45,7 +47,8 @@ def _init(gen: Optional[torch.Generator], shape, std: float,
     if gen is None:
         t = torch.empty(shape, dtype=dtype, device=device)
     else:
-        t = (torch.randn(shape, generator=gen, device=device) * std).to(dtype)
+        t = torch.randn(shape, generator=gen, device=device).mul_(std).to(
+            dtype)
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -129,10 +132,16 @@ def positions_cos_sin(cfg: ModelConfig, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 class AttentionCore(nn.Module):
-    """q [B, S, H, D], k/v [B, S, KV, D] -> [B, S, H, D]: causal attention,
-    optionally windowed, through the flash kernel. It holds no weights; it
-    is a module of its own so that a caller can hook each layer's kernel
-    call and hold it against the plain version on the same q, k, v."""
+    """q, k [B, S, H | KV, D], v [B, S, KV, Dv] with Dv <= D -> [B, S, H,
+    Dv]: causal attention, optionally windowed, through the flash kernel,
+    scaled by 1/sqrt(D). It holds no weights; it is a module of its own so
+    that a caller can hook each layer's kernel call and hold it against the
+    plain version on the same q, k, v.
+
+    The kernel takes one head dim for q, k and v. A narrower v (MLA: Dv
+    128 against D 192) is padded with zero columns to D and the output cut
+    back to Dv, which is exact: zero columns of V give zero output
+    columns, and the others do not see them."""
 
     def __init__(self, window: int):
         super().__init__()
@@ -140,7 +149,11 @@ class AttentionCore(nn.Module):
 
     def forward(self, q: torch.Tensor, k: torch.Tensor,
                 v: torch.Tensor) -> torch.Tensor:
-        return flash_attention(q, k, v, window=self.window)
+        dv, d = v.shape[-1], q.shape[-1]
+        if dv == d:
+            return flash_attention(q, k, v, window=self.window)
+        return flash_attention(q, k, F.pad(v, (0, d - dv)),
+                               window=self.window)[..., :dv]
 
 
 class Attention(nn.Module):
@@ -244,16 +257,111 @@ def attention_decode(p: Attention, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Gated MLP (SwiGLU / GeGLU)
+# MLA (deepseek-v3): low-rank q/kv compression, absorbed decode
 # ---------------------------------------------------------------------------
 
-class MLP(nn.Module):
-    """One layer's gated MLP weights (``init_mlp``)."""
+class MLA(nn.Module):
+    """One layer's MLA weights (``init_mla``) and its attention core."""
 
     def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator],
                  device):
         super().__init__()
-        d, ff = cfg.d_model, cfg.d_ff
+        d, h = cfg.d_model, cfg.num_heads
+        qr, kr = cfg.q_lora_rank, cfg.kv_lora_rank
+        nd, rd, vd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                      cfg.v_head_dim)
+        dt = _dtype(cfg)
+        self.cfg = cfg
+        self.wdq = _init(gen, (d, qr), d ** -0.5, dt, device)
+        self.q_norm = init_rms_norm(qr, dt, device)
+        self.wuq = _init(gen, (qr, h, nd + rd), qr ** -0.5, dt, device)
+        self.wdkv = _init(gen, (d, kr + rd), d ** -0.5, dt, device)
+        self.kv_norm = init_rms_norm(kr, dt, device)
+        self.wuk = _init(gen, (kr, h, nd), kr ** -0.5, dt, device)
+        self.wuv = _init(gen, (kr, h, vd), kr ** -0.5, dt, device)
+        self.wo = _init(gen, (h, vd, d), (h * vd) ** -0.5, dt, device)
+        self.core = AttentionCore(0)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        return mla_fwd(self, x, self.cfg, positions)
+
+
+def init_mla(cfg: ModelConfig, gen: Optional[torch.Generator],
+             device) -> MLA:
+    return MLA(cfg, gen, device)
+
+
+def _mla_qkv_compressed(p: MLA, x: torch.Tensor, cfg: ModelConfig,
+                        positions: torch.Tensor):
+    """Returns (q_nope [B, S, H, nd], q_rope [B, S, H, rd], c_kv [B, S,
+    kv_lora], k_rope [B, S, rd]); RoPE on the rope parts."""
+    nd, rd, kr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.kv_lora_rank
+    cq = rms_norm(x @ p.wdq, p.q_norm, cfg.norm_eps)
+    q = _proj(cq, p.wuq)
+    dkv = x @ p.wdkv
+    c_kv = rms_norm(dkv[..., :kr], p.kv_norm, cfg.norm_eps)
+    cos, sin = positions_cos_sin(cfg, positions, rd)
+    return (q[..., :nd], apply_rope(q[..., nd:], cos, sin), c_kv,
+            apply_rope(dkv[..., kr:], cos, sin))
+
+
+def mla_fwd(p: MLA, x: torch.Tensor, cfg: ModelConfig,
+            positions: torch.Tensor) -> torch.Tensor:
+    """Prefill: k and v expanded per head, k_rope broadcast over the heads,
+    attention through the core (qk head dim nd + rd, v head dim vd)."""
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv_compressed(p, x, cfg, positions)
+    k_nope = _proj(c_kv, p.wuk)
+    v = _proj(c_kv, p.wuv)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        *k_nope.shape[:3], cfg.qk_rope_head_dim)], dim=-1)
+    return _out(p, p.core(q, k, v))
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype: torch.dtype, device) -> Dict[str, torch.Tensor]:
+    """The compressed stream: ``ckv`` [B, max_len, kv_lora] and ``krope``
+    [B, max_len, rd]."""
+    return {"ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "krope": torch.zeros((batch, max_len, cfg.qk_rope_head_dim),
+                                 dtype=dtype, device=device)}
+
+
+def mla_decode(p: MLA, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+               cfg: ModelConfig, pos: int) -> torch.Tensor:
+    """Absorbed-matrix decode of one token: W_uk folded into the query,
+    W_uv into the output, so attention runs in the compressed space. The
+    new c_kv, k_rope are written into the cache in place at ``pos``."""
+    b = x.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv_compressed(p, x, cfg, positions)
+    ckv, krp = cache["ckv"], cache["krope"]
+    ckv[:, pos] = c_kv[:, 0]
+    krp[:, pos] = k_rope[:, 0]
+    q_abs = torch.einsum("bshn,rhn->bshr", q_nope, p.wuk)
+    s_c = torch.einsum("bshr,bcr->bhsc", q_abs, ckv)
+    s_r = torch.einsum("bshr,bcr->bhsc", q_rope, krp)
+    scale = 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+    scores = (s_c + s_r).float() * scale
+    mask = torch.arange(ckv.shape[1], device=x.device) <= pos
+    w = torch.softmax(scores.masked_fill(~mask, NEG_INF), dim=-1)
+    ctx = torch.einsum("bhsc,bcr->bshr", w, ckv.float()).to(x.dtype)
+    return _out(p, torch.einsum("bshr,rhv->bshv", ctx, p.wuv))
+
+
+# ---------------------------------------------------------------------------
+# Gated MLP (SwiGLU / GeGLU)
+# ---------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    """One layer's gated MLP weights (``init_mlp``), of width ``d_ff``
+    (``cfg.d_ff`` unless given: the MoE's shared expert)."""
+
+    def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator],
+                 device, d_ff: Optional[int] = None):
+        super().__init__()
+        d, ff = cfg.d_model, d_ff or cfg.d_ff
         dt = _dtype(cfg)
         self.cfg = cfg
         self.wi_gate = _init(gen, (d, ff), d ** -0.5, dt, device)
@@ -265,8 +373,8 @@ class MLP(nn.Module):
 
 
 def init_mlp(cfg: ModelConfig, gen: Optional[torch.Generator],
-             device) -> MLP:
-    return MLP(cfg, gen, device)
+             device, d_ff: Optional[int] = None) -> MLP:
+    return MLP(cfg, gen, device, d_ff)
 
 
 def _act(cfg: ModelConfig):
@@ -279,3 +387,107 @@ def _act(cfg: ModelConfig):
 def mlp_fwd(p: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = _act(cfg)(x @ p.wi_gate) * (x @ p.wi_up)
     return h @ p.wo
+
+
+# ---------------------------------------------------------------------------
+# MoE: top-k routing, sort-based capacity dispatch, optional shared experts
+# ---------------------------------------------------------------------------
+
+class MoE(nn.Module):
+    """One layer's experts (``init_moe``): a float32 ``router`` [d, E]
+    whatever the model's dtype, ``wi_gate``/``wi_up`` [E, d, ff], ``wo``
+    [E, ff, d] and, with shared experts, ``shared`` (an :class:`MLP` of
+    width ``moe_d_ff · moe_shared_experts``)."""
+
+    def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator],
+                 device):
+        super().__init__()
+        d, e, ff = cfg.d_model, cfg.moe_num_experts, cfg.moe_d_ff
+        dt = _dtype(cfg)
+        self.cfg = cfg
+        self.router = _init(gen, (d, e), d ** -0.5, torch.float32, device)
+        self.wi_gate = _init(gen, (e, d, ff), d ** -0.5, dt, device)
+        self.wi_up = _init(gen, (e, d, ff), d ** -0.5, dt, device)
+        self.wo = _init(gen, (e, ff, d), ff ** -0.5, dt, device)
+        if cfg.moe_shared_experts:
+            self.shared = MLP(cfg, gen, device,
+                              cfg.moe_d_ff * cfg.moe_shared_experts)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return moe_fwd(self, x, self.cfg)
+
+
+def init_moe(cfg: ModelConfig, gen: Optional[torch.Generator],
+             device) -> MoE:
+    return MoE(cfg, gen, device)
+
+
+class Routing(NamedTuple):
+    """One call's routing over its t tokens (assignment i = token i // k,
+    its (i % k)-th choice)."""
+    logits: torch.Tensor   # [t, E] float32, the router's
+    gates: torch.Tensor    # [t, k] float32, renormalised over the k choices
+    idx: torch.Tensor      # [t, k] int64 expert ids, by falling probability
+    rank: torch.Tensor     # [t·k] int64 rank within the expert, in token order
+    keep: torch.Tensor     # [t·k] bool: rank < cap
+    dest: torch.Tensor     # [t·k] int64 slot: expert·cap + rank, or E·cap
+    cap: int               # slots per expert in this call
+
+
+def moe_capacity(tokens: int, cfg: ModelConfig) -> int:
+    """Slots per expert for a call over ``tokens`` tokens."""
+    e, k = cfg.moe_num_experts, cfg.moe_top_k
+    return max(int(math.ceil(tokens * k / e * cfg.capacity_factor)), 1)
+
+
+def moe_route(p: MoE, xt: torch.Tensor, cfg: ModelConfig) -> Routing:
+    """The reference's routing of ``xt`` [t, d], integer for integer: a
+    float32 softmax of the router's logits, the top k by probability (ties
+    to the smaller expert id, as ``lax.top_k``: a stable descending sort),
+    gates renormalised, then each assignment's rank within its expert in
+    token order (a stable sort of the flat expert ids), kept below the
+    capacity and sent to the drop slot E·cap otherwise."""
+    t = xt.shape[0]
+    e, k = cfg.moe_num_experts, cfg.moe_top_k
+    cap = moe_capacity(t, cfg)
+    logits = xt.float() @ p.router
+    probs, order_e = torch.sort(torch.softmax(logits, dim=-1), dim=-1,
+                                descending=True, stable=True)
+    gates, idx = probs[:, :k], order_e[:, :k]
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    e_flat = idx.reshape(t * k)
+    order = torch.argsort(e_flat, stable=True)
+    e_sorted = e_flat[order]
+    counts = torch.bincount(e_sorted, minlength=e)
+    starts = counts.cumsum(0) - counts
+    rank = torch.empty_like(e_flat)
+    rank[order] = torch.arange(t * k, device=xt.device) - starts[e_sorted]
+    keep = rank < cap
+    dest = torch.where(keep, e_flat * cap + rank, e * cap)
+    return Routing(logits, gates, idx, rank, keep, dest, cap)
+
+
+def moe_fwd(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x [B, S, d] -> [B, S, d]: each kept assignment's token scattered into
+    its slot of a [E·cap + 1, d] buffer (the last row the drop slot), the
+    experts' gated MLPs as batched products over [E, cap, d], each
+    assignment's row gathered back and the k rows summed by gate; plus the
+    shared expert. A kept slot receives exactly one add, so the scatter is
+    deterministic on CUDA too; only the discarded drop slot sums many."""
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.moe_num_experts, cfg.moe_top_k
+    xt = x.reshape(t, d)
+    r = moe_route(p, xt, cfg)
+    tok_of = torch.arange(t * k, device=x.device) // k
+    buf = torch.zeros((e * r.cap + 1, d), dtype=xt.dtype, device=x.device)
+    buf.index_add_(0, r.dest, xt[tok_of])
+    buf = buf[:-1].view(e, r.cap, d)
+    h = _act(cfg)(torch.bmm(buf, p.wi_gate)) * torch.bmm(buf, p.wi_up)
+    flat_out = torch.cat([torch.bmm(h, p.wo).reshape(e * r.cap, d),
+                          buf.new_zeros((1, d))])
+    y_assign = flat_out[r.dest].view(t, k, d)
+    y = (y_assign * r.gates.to(y_assign.dtype)[..., None]).sum(1)
+    if cfg.moe_shared_experts:
+        y = y + mlp_fwd(p.shared, x, cfg).reshape(t, d)
+    return y.reshape(b, s, d)

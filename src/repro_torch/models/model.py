@@ -1,13 +1,14 @@
-"""Model assembly for the dense decoder: block planning, prefill forward and
-the synchronized cached decode step.
+"""Model assembly: block planning, prefill forward and the synchronized
+cached decode step, for every layer signature of the architecture pool.
 
-The port of ``repro.models.model`` for layers of signature ("attn",
-"mlp"). The reference stacks each block's layers and scans over them; the
-port keeps one :class:`DecoderLayer` per layer in a ``ModuleList``, in
-the reference's layer order (block by block, repeat-major), which is the
-order :func:`repro_torch.convert.model_params_from_numpy` unstacks the
-reference's ``blocks[b][slot]`` leaves into. Configs with MLA, SSM or MoE
-layers raise ``NotImplementedError``.
+The port of ``repro.models.model``. The reference stacks each block's
+layers and scans over them; the port keeps one :class:`DecoderLayer` per
+layer in a ``ModuleList``, in the reference's layer order (block by block,
+repeat-major), which is the order
+:func:`repro_torch.convert.model_params_from_numpy` unstacks the
+reference's ``blocks[b][slot]`` leaves into. A layer is a mixer
+(``attn``, ``mla`` or ``ssm``) and a feed-forward (``mlp``, ``moe`` or
+``none``), each pre-normed and added to the residual.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; the
 model's weights never require grad (this slice serves, it does not train).
@@ -21,16 +22,13 @@ import torch
 from torch import nn
 
 from .._device import DEFAULT_DEVICE, DeviceLike, resolve_device
+from ..distributed import sharding as SH
 from . import layers as L
+from . import ssm as SSM
 from .config import ModelConfig
 
 LayerSig = Tuple[str, str]  # (mixer_kind, ffn_kind)
 Cache = Dict[str, Any]
-
-#: the signature this slice of the port runs
-DENSE: LayerSig = ("attn", "mlp")
-#: where the other signatures' port is queued
-WAITING = "ROADMAP Queue 1, item 2 (MoE, MLA and SSM layers)"
 
 
 # ---------------------------------------------------------------------------
@@ -86,15 +84,9 @@ def build_plan(cfg: ModelConfig) -> List[Block]:
 
 def plan_sigs(cfg: ModelConfig) -> List[LayerSig]:
     """Each layer's signature in the order of :func:`build_plan` (block by
-    block, repeat-major); raises for a signature this slice does not run."""
-    sigs = [sig for blk in build_plan(cfg) for _ in range(blk.repeat)
+    block, repeat-major)."""
+    return [sig for blk in build_plan(cfg) for _ in range(blk.repeat)
             for sig in blk.sigs]
-    other = sorted({s for s in sigs if s != DENSE})
-    if other:
-        raise NotImplementedError(
-            f"{cfg.name}: layers {other} are not ported yet; only "
-            f"{DENSE} runs in this slice. They wait for {WAITING}.")
-    return sigs
 
 
 # ---------------------------------------------------------------------------
@@ -102,33 +94,81 @@ def plan_sigs(cfg: ModelConfig) -> List[LayerSig]:
 # ---------------------------------------------------------------------------
 
 class DecoderLayer(nn.Module):
-    """Pre-norm attention then pre-norm gated MLP, each added to the
-    residual: the reference's ``_init_sublayer`` / ``_apply_sublayer`` for
-    ("attn", "mlp")."""
+    """One layer of signature ``sig``: pre-norm mixer, then (unless the
+    ffn is "none") pre-norm MLP or MoE, each added to the residual; the
+    reference's ``_init_sublayer`` / ``_apply_sublayer``."""
 
-    def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator],
-                 device):
+    def __init__(self, cfg: ModelConfig, sig: LayerSig,
+                 gen: Optional[torch.Generator], device):
         super().__init__()
+        mixer, ffn = sig
         dt = L._dtype(cfg)
-        self.cfg = cfg
+        self.cfg, self.sig = cfg, sig
         self.ln1 = L.init_rms_norm(cfg.d_model, dt, device)
-        self.mixer = L.init_attention(cfg, gen, device)
-        self.ln2 = L.init_rms_norm(cfg.d_model, dt, device)
-        self.ffn = L.init_mlp(cfg, gen, device)
+        if mixer == "attn":
+            self.mixer = L.init_attention(cfg, gen, device)
+        elif mixer == "mla":
+            self.mixer = L.init_mla(cfg, gen, device)
+        elif mixer == "ssm":
+            self.mixer = SSM.init_ssm(cfg, gen, device)
+        else:
+            raise ValueError(f"unknown mixer {mixer!r}")
+        if ffn != "none":
+            self.ln2 = L.init_rms_norm(cfg.d_model, dt, device)
+            self.ffn = (L.init_moe(cfg, gen, device) if ffn == "moe"
+                        else L.init_mlp(cfg, gen, device))
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        eps = self.cfg.norm_eps
-        x = x + self.mixer(L.rms_norm(x, self.ln1, eps), positions)
-        return x + self.ffn(L.rms_norm(x, self.ln2, eps))
+        h = L.rms_norm(x, self.ln1, self.cfg.norm_eps)
+        x = x + (self.mixer(h) if self.sig[0] == "ssm"
+                 else self.mixer(h, positions))
+        return _apply_ffn(self, x)
+
+
+def _apply_ffn(p: DecoderLayer, x: torch.Tensor) -> torch.Tensor:
+    if p.sig[1] == "none":
+        return x
+    h = L.rms_norm(x, p.ln2, p.cfg.norm_eps)
+    return x + (_moe(p.ffn, h, p.cfg) if p.sig[1] == "moe" else p.ffn(h))
+
+
+def _moe(p: L.MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The MoE layer. ``moe_impl="ep"`` (expert parallel) is the reference's
+    ``moe_fwd_ep``, which runs ``moe_fwd`` unless a mesh with a "model"
+    axis is active; the port does the same and raises under such a mesh."""
+    if cfg.moe_impl == "ep":
+        mesh = SH.active_mesh()
+        if mesh is not None and "model" in SH.axis_sizes(mesh):
+            raise NotImplementedError(
+                "expert-parallel MoE (moe_impl='ep') under a mesh with a "
+                "'model' axis is not ported yet: it waits for ROADMAP "
+                "Queue 1, item 4 (production sharding)")
+    return p(x)
 
 
 def _decode_sublayer(cfg: ModelConfig, p: DecoderLayer,
                      cache: Dict[str, torch.Tensor], x: torch.Tensor,
                      pos: int) -> torch.Tensor:
-    """The layer on one position; its KV cache is updated in place."""
-    x = x + L.attention_decode(p.mixer, L.rms_norm(x, p.ln1, cfg.norm_eps),
-                               cache, cfg, pos)
-    return x + p.ffn(L.rms_norm(x, p.ln2, cfg.norm_eps))
+    """The layer on one position; its cache is updated in place."""
+    h = L.rms_norm(x, p.ln1, cfg.norm_eps)
+    mixer = p.sig[0]
+    if mixer == "attn":
+        h = L.attention_decode(p.mixer, h, cache, cfg, pos)
+    elif mixer == "mla":
+        h = L.mla_decode(p.mixer, h, cache, cfg, pos)
+    else:
+        h = SSM.ssm_decode(p.mixer, h, cache, cfg)
+    return _apply_ffn(p, x + h)
+
+
+def _init_sublayer_cache(cfg: ModelConfig, sig: LayerSig, batch: int,
+                         max_len: int, dtype: torch.dtype,
+                         device) -> Dict[str, torch.Tensor]:
+    if sig[0] == "attn":
+        return L.init_attention_cache(cfg, batch, max_len, dtype, device)
+    if sig[0] == "mla":
+        return L.init_mla_cache(cfg, batch, max_len, dtype, device)
+    return SSM.init_ssm_cache(cfg, batch, dtype, device)
 
 
 # ---------------------------------------------------------------------------
@@ -149,7 +189,7 @@ class Model(nn.Module):
             self.embed = L._init(gen, (cfg.padded_vocab, cfg.d_model), 0.02,
                                  dt, device)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, gen, device) for _ in sigs)
+            DecoderLayer(cfg, sig, gen, device) for sig in sigs)
         self.final_norm = L.init_rms_norm(cfg.d_model, dt, device)
         if not cfg.tie_embeddings:
             self.head = L._init(gen, (cfg.d_model, cfg.padded_vocab), 0.02,
@@ -207,12 +247,14 @@ def _lm_head(params: Model, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: DeviceLike = DEFAULT_DEVICE) -> Cache:
-    """Per layer a KV cache (a ring buffer of ``min(max_len, window)``
-    slots for sliding-window configs), and the synchronized position."""
+    """Per layer its mixer's cache (attention: KV, a ring buffer of
+    ``min(max_len, window)`` slots for sliding-window configs; MLA: the
+    compressed stream; SSM: convolution windows and the float32 state),
+    and the synchronized position."""
     dev = resolve_device(device)
     dt = L._dtype(cfg)
-    return {"layers": [L.init_attention_cache(cfg, batch, max_len, dt, dev)
-                       for _ in plan_sigs(cfg)],
+    return {"layers": [_init_sublayer_cache(cfg, sig, batch, max_len, dt,
+                                            dev) for sig in plan_sigs(cfg)],
             "pos": 0}
 
 
@@ -220,7 +262,7 @@ def decode_step(params: Model, cache: Cache, cfg: ModelConfig,
                 inputs: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
     """One synchronized decode step. inputs: [B, 1] tokens or [B, 1, d]
     embeddings. Returns logits [B, 1, padded vocab] and the cache at
-    ``pos + 1``; its KV tensors are updated in place."""
+    ``pos + 1``; its tensors are updated in place."""
     pos = int(cache["pos"])
     x = _embed(params, cfg, inputs)
     for layer, lc in zip(params.layers, cache["layers"]):

@@ -948,55 +948,104 @@ def test_sharded_path_on_the_card_equals_the_cpu(cuda, tmp_path):
         spawn(print, torch.cuda.device_count() + 1, device=cuda)
 
 
+#: the card-vs-CPU model test's configs by dtype. In bfloat16 the MoE
+#: layers are cut (``moe_layer_start`` past the last layer): at these
+#: reduced configs the CPU's own bf16 logits lie 0.17-0.63 of max |logit|
+#: from the float32 model on the same weights with the MoE layers, and
+#: 0.013-0.043 without them (``tests/bf16_drift.py``): a rounding flips a
+#: near-tied top-k choice and sends a token to another expert, which no
+#: count of roundings bounds.
+CARD_MODELS = {
+    "float32": ("qwen3_8b", "h2o_danube3_4b", "phi35_moe", "deepseek_v3",
+                "mamba2_130m", "jamba15_large"),
+    "bfloat16": ("qwen3_8b", "h2o_danube3_4b", "phi35_moe", "deepseek_v3",
+                 "mamba2_130m", "jamba15_large"),
+}
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_model_on_the_card_equals_the_cpu(cuda, dtype):
-    """A reduced qwen3_8b (qk-norm, GQA) and h2o_danube3_4b (window 64) on
-    the card: the prefill forward launches the flash kernel once per
-    layer, on the dtype's route, and its logits and 80 teacher-forced
-    decode steps (past the ring buffer) equal the same model on the CPU.
-    float32: within 1e-4 of max |logit| (the CPU parity tests' bound).
-    bfloat16: within 2L · 2^-8 of max |logit|, one bf16 rounding (2^-9 a
-    side) of each of the 2L sublayers' outputs carried to the logits at
-    gain 1 (stated in CHANGES.md)."""
+    """Reduced configs on the card: qwen3_8b (qk-norm, GQA),
+    h2o_danube3_4b (window 64), phi35_moe (MoE), deepseek_v3 (MLA, its
+    v padded for the kernel; MoE with a shared expert), mamba2_130m (SSM)
+    and jamba15_large (attention and SSM). The prefill forward launches the
+    flash kernel once per attention or MLA layer, on the dtype's route,
+    and its logits and 80 teacher-forced decode steps (past the ring
+    buffer) equal the same model on the CPU. float32: within 1e-4 of max
+    |logit| (the CPU parity tests' bound). bfloat16, MoE layers cut
+    (``CARD_MODELS``): within 2L · 2^-8 of max |logit|, one bf16 rounding
+    (2^-9 a side) of each of the 2L sublayers' outputs carried to the
+    logits at gain 1; a config with SSD layers, which round about eight
+    times along their chain, within twice the CPU's own bf16 error (max
+    |bf16 - float32| over max |logit|, the same weights and inputs in
+    float32 on the CPU; the largest over the decode steps for the steps)
+    where that is larger: two bf16 runs that each lie within e of the
+    float32 one lie within 2e of each other. The readings are printed."""
     import copy
     import dataclasses
 
     from repro_torch import configs
     from repro_torch.models import (decode_step, forward, init_cache,
-                                    init_params, reduced)
+                                    init_params, layer_sigs, reduced)
 
-    for arch in ("qwen3_8b", "h2o_danube3_4b"):
+    for arch in CARD_MODELS[dtype]:
         cfg = dataclasses.replace(
             reduced(configs.get(arch), layers=3, d_model=256, heads=4, kv=2,
                     ff=512, vocab=1000), dtype=dtype)
+        if dtype == "bfloat16":
+            cfg = dataclasses.replace(cfg, moe_layer_start=cfg.num_layers)
+        attn = sum(m in ("attn", "mla") for m, _ in layer_sigs(cfg))
         host = init_params(cfg, 0, device="cpu")
         card = copy.deepcopy(host).to(cuda)
-        tol = 1e-4 if dtype == "float32" else 2 * cfg.num_layers * 2.0 ** -8
         v = cfg.vocab_size
 
-        def close(got, want, what):
+        def gap(got, want):
             err = float((got.float().cpu() - want.float())[..., :v].abs()
                         .max())
-            scale = max(float(want.float()[..., :v].abs().max()), 1.0)
-            assert err <= tol * scale, (arch, what, err, scale)
-            assert (got[..., v:] == -1e30).all()
+            return err / max(float(want.float()[..., :v].abs().max()), 1.0)
 
-        tokens = torch.randint(0, v, (2, 300), generator=torch.Generator()
-                               .manual_seed(3))
+        # S a multiple of the reduced configs' ssm_chunk of 8
+        tokens = torch.randint(0, v, (2, 304 if cfg.ssm else 300),
+                               generator=torch.Generator().manual_seed(3))
         with torch.inference_mode():
-            want = forward(host, cfg, tokens)
+            def cpu_run(model, c):
+                cache = init_cache(c, 2, 96, device="cpu")
+                steps = []
+                for i in range(80):
+                    lg, cache = decode_step(model, cache, c,
+                                            tokens[:, i:i + 1])
+                    steps.append(lg)
+                return forward(model, c, tokens), steps
+
+            want, want_steps = cpu_run(host, cfg)
+            tol = tol_steps = 1e-4 if dtype == "float32" else \
+                2 * cfg.num_layers * 2.0 ** -8
+            if dtype == "bfloat16" and cfg.ssm:
+                exact, exact_steps = cpu_run(
+                    copy.deepcopy(host).float(),
+                    dataclasses.replace(cfg, dtype="float32"))
+                e32 = gap(want, exact)
+                e32_steps = max(map(gap, want_steps, exact_steps))
+                tol, tol_steps = max(tol, 2 * e32), max(tol, 2 * e32_steps)
             flash_attention.reset_launch_counts()
             got = forward(card, cfg, tokens.to(cuda))
             torch.cuda.synchronize()
             assert flash_attention.ROUTE_LAUNCHES == {
-                "wgmma_bf16": 3 * (dtype == "bfloat16"),
-                "fma_fp32": 3 * (dtype == "float32")}
-            close(got, want, "forward")
-            hc = init_cache(cfg, 2, 96, device="cpu")
+                "wgmma_bf16": attn * (dtype == "bfloat16"),
+                "fma_fp32": attn * (dtype == "float32")}, arch
+            err = gap(got, want)
+            assert (got[..., v:] == -1e30).all(), arch
             cc = init_cache(cfg, 2, 96, device=cuda)
+            err_steps = 0.0
             for i in range(80):
-                want, hc = decode_step(host, hc, cfg, tokens[:, i:i + 1])
                 got, cc = decode_step(card, cc, cfg,
                                       tokens[:, i:i + 1].to(cuda))
-                close(got, want, f"decode step {i}")
-            assert flash_attention.LAUNCHES["flash_attention"] == 3
+                assert (got[..., v:] == -1e30).all(), (arch, i)
+                err_steps = max(err_steps, gap(got, want_steps[i]))
+            print(f"{arch} {dtype}: card vs CPU, forward {err:.4g} (bound "
+                  f"{tol:.4g}), decode steps {err_steps:.4g} (bound "
+                  f"{tol_steps:.4g}) of max |logit|")
+            assert err <= tol, (arch, "forward", err, tol)
+            assert err_steps <= tol_steps, (arch, "decode", err_steps,
+                                            tol_steps)
+            assert flash_attention.LAUNCHES["flash_attention"] == attn

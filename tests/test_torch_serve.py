@@ -26,10 +26,16 @@ PROMPTS = [[1, 2, 3], [4, 5], [6], [7, 8, 9, 10]]
 
 
 @pytest.mark.parametrize("arch,tokens", [("gemma_2b", 16),
-                                         ("h2o_danube3_4b", 72)])
+                                         ("h2o_danube3_4b", 72),
+                                         ("phi35_moe", 16),
+                                         ("deepseek_v3", 16),
+                                         ("mamba2_130m", 16),
+                                         ("jamba15_large", 16)])
 def test_greedy_tokens_equal_the_reference(arch, tokens):
     """The reference server's weights in the port's server give the same
-    greedy tokens; the window config decodes past its 64-slot ring."""
+    greedy tokens; the window config decodes past its 64-slot ring; the
+    MoE, MLA, SSM and hybrid configs route, cache and decode as the
+    reference does."""
     sc = RS.ServeConfig(arch=arch)
     ref = RS.BatchedServer(sc)
     want = ref.generate(PROMPTS, tokens, greedy=True)
