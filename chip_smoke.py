@@ -200,6 +200,28 @@ Phases, each printed as it runs:
      reference's own drift reaches 0.36) and float32 within 1e-3. Then the serve loop and a profiled decode step for
      ``mamba2_130m`` and ``phi35_moe``, and the launcher's ``main
      --device cuda`` for both.
+  3k. The training path. The flash Function (the kernel's forward, the
+     plain recompute's backward) at ``qwen3_8b``'s layer shape (B = 1, S =
+     4,096, 32/8 heads of 128) and at MLA's (S = 2,048, 128 heads, D 192,
+     v 128), bf16: output and dq, dk, dv against autograd through
+     ``ref.causal_attention`` on the same tensors, then forward + backward
+     timed beside the backward alone, the plain version's and SDPA's. A
+     reduced float32 train step (Adafactor) on the card against the same
+     step on the CPU (``qwen3_8b``, ``deepseek_v3``). Through
+     ``launch.train.train`` on the card: reduced ``gemma_2b``, 25 steps,
+     whose last-5 mean loss must fall below its first-5 mean; a fault at
+     step 13 of 24, recovered from the step-12 checkpoint in a temporary
+     directory; ``qwen3_8b`` at full width and depth (bf16, Adafactor,
+     remat, B = 1, S = 4,096, ``TRAIN_STEPS`` steps): finite loss and
+     grad_norm, step times by CUDA events (median of steps 2-4) beside the
+     bound (``model_flops + attention_flops`` at ``train_4k`` with batch 1
+     over 989 TFLOP/s), peak memory, exactly 72 ``wgmma_bf16`` launches a
+     step (forward and remat), one more step under torch.profiler (device
+     busy, idle share; the attention backward's share from its time at the
+     layer shape). AdamW (float32 moments) at full width with
+     ``ADAMW_LAYERS`` of 36 layers through ``make_train_step``: step time,
+     peak memory, launches. Last, the launcher's ``main --device cuda``.
+     Each run's launch counts are zeroed just before and read just after.
   4. Where the time goes: a warm Bloom pass (and the [T, k] gather
      kernel's time per launch in it), a Bloom sketch build, warm k-Hash
      and 1-Hash-naive passes, the scale-21 4-clique pass, the exact
@@ -310,6 +332,14 @@ SSM_DECODE_BF16, SSM_DECODE_FP32 = 0.5, 1e-3
 #: mamba2_130m's width on the CPU: max 0.8-1.7%, mean 0.61-0.65% (the
 #: port's 0.45-0.74%, 0.29-0.31%; tests/bf16_drift.py).
 SSM_LAYER_TOL, SSM_LAYER_MEAN_TOL = 2.0 ** -5, 2.0 ** -7
+
+#: phase 3k: the training path at full width: the config, its sequence
+#: (``train_4k``'s, the global batch cut to 1), the steps of the
+#: ``train()`` run (timed on steps 2-4), and AdamW's depth (its float32
+#: moments for all 36 layers, 65.5 GB, beside weights and gradients, do
+#: not fit on one card) and steps
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_STEPS = "qwen3_8b", 4096, 5
+ADAMW_LAYERS, ADAMW_STEPS = 8, 4
 
 #: why a row's ``library_ms`` is null: no single PyTorch call computes it
 NO_LIBRARY = {
@@ -3965,6 +3995,417 @@ def phase_archs(torch, np, kernels, ref) -> dict:
     return out
 
 
+def flash_gradient_cell(torch, fa, ref, flush, name, shape, gen, since
+                        ) -> dict:
+    """The flash Function at one layer's shape, bfloat16: its output and
+    dq, dk, dv against autograd through ``ref.causal_attention`` on the
+    same tensors (phase 2's forward tolerance; gradients within one bf16
+    ulp, 2^-7 of the value, plus 1e-6 of max |plain|: both round a
+    float32 gradient once), then forward + backward timed beside the
+    backward alone, the plain version's forward + backward and SDPA's (a
+    yardstick) on the same inputs, and the bound: the flops of forward
+    and backward, 2·H·pairs·(4·D + 3·Dv), over the bf16 tensor-core
+    rate."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.layers import AttentionCore
+
+    b, s, h, kvh, d, dv = shape
+
+    def draw(*dims):
+        return torch.randn(dims, device="cuda", generator=gen).to(
+            torch.bfloat16).requires_grad_()
+    q, k, v = draw(b, s, h, d), draw(b, s, kvh, d), draw(b, s, kvh, dv)
+    dout = draw(b, s, h, dv).detach()
+    core = AttentionCore(0)
+    before = fa.ROUTE_LAUNCHES["wgmma_bf16"]
+    out = core(q, k, v)
+    require(fa.ROUTE_LAUNCHES["wgmma_bf16"] == before + 1,
+            f"{name}: the Function's forward launched "
+            f"{fa.ROUTE_LAUNCHES['wgmma_bf16'] - before} wgmma kernels")
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    out = out.detach()
+
+    def plain():
+        return ref.causal_attention(q, k, F.pad(v, (0, d - dv)), 0)[..., :dv]
+    want_out = plain()
+    want = torch.autograd.grad(want_out, (q, k, v), dout)
+    want_out = want_out.detach()
+    diff = (out.float() - want_out.float()).abs()
+    require(torch.allclose(out.float(), want_out.float(),
+                           **attn_tol(v.detach(), "bfloat16"))
+            and float(diff.mean()) <= ATTN_BF16_MEAN,
+            f"{name}: Function output vs plain, max {float(diff.max())}")
+    errs = {}
+    for what, g, w in zip("qkv", got, want):
+        gd = (g.float() - w.float()).abs()
+        scale = float(w.float().abs().max())
+        errs[what] = float(gd.max()) / scale
+        require(g.dtype == torch.bfloat16 and bool(
+            (gd <= 2.0 ** -7 * w.float().abs() + 1e-6 * scale).all()),
+            f"{name}: d{what} vs plain autograd, max |diff| "
+            f"{float(gd.max())} of max {scale}")
+    del out, want_out, got, want, diff
+    v_pad = F.pad(v.detach(), (0, d - dv))
+    dout_pad = F.pad(dout, (0, d - dv))
+    ms = time_ms(lambda: torch.autograd.grad(core(q, k, v), (q, k, v), dout),
+                 flush, reps=5, warmup=1)
+    bwd_ms = time_ms(lambda: fa.attention_backward(
+        q.detach(), k.detach(), v_pad, dout_pad, 0), flush, reps=5, warmup=1)
+    plain_ms = time_ms(lambda: torch.autograd.grad(plain(), (q, k, v), dout),
+                       flush, reps=3, warmup=1)
+    vp = v_pad.clone().requires_grad_()
+    lib = library_attention(torch, q, k, vp, 0)
+    lib_dout = dout_pad.transpose(1, 2)
+    lib_ms = time_ms(lambda: torch.autograd.grad(lib(), (q, k, vp),
+                                                 lib_dout),
+                     flush, reps=5, warmup=1)
+    flops = 2 * h * attended_pairs(s, 0) * (4 * d + 3 * dv)
+    bound, by = bound_ms(0, flops, PEAK_BF16_FLOPS)
+    print(f"  [{since():.1f} s] flash Function {name} (B={b} S={s} H={h} "
+          f"KV={kvh} D={d} Dv={dv}, bf16): output and dq/dk/dv within bound "
+          f"of plain autograd (max |diff| / max: "
+          + ", ".join(f"d{w} {e:.3g}" for w, e in errs.items())
+          + f"); forward + backward {ms:.3f} ms (backward alone "
+          f"{bwd_ms:.3f} ms), plain {plain_ms:.3f} ms, SDPA {lib_ms:.3f} ms; "
+          f"bound {bound:.4f} ms ({flops:.4g} flop over "
+          f"{PEAK_BF16_FLOPS:.4g} flop/s), {bound / ms:.2%} of it",
+          flush=True)
+    return dict(ms=ms, bwd_ms=bwd_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound, bound_by=by, errs=errs)
+
+
+def card_vs_cpu_step(torch, arch: str, since) -> dict:
+    """One reduced float32 ``make_train_step`` step (Adafactor, lr 1e-2,
+    remat on) on the card against the same step on the CPU from the same
+    state, as the card test holds it: every gradient within 1e-4 of max
+    |CPU|; loss and ``grad_norm`` within rtol 1e-4; parameters within 1e-4
+    of max |CPU| on all but 1e-3 of each tensor and within 2.1 · lr
+    everywhere (a gradient that is zero up to its float32 error may step
+    the other way: Adafactor's first update of an unfactored leaf is
+    lr · g / |g|)."""
+    import copy
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.distributed.step import init_train_state, \
+        make_train_step
+    from repro_torch.models import loss_fn, reduced
+    from repro_torch.optim import Adafactor
+
+    cfg = dataclasses.replace(
+        reduced(configs.get(arch), layers=3, d_model=256, heads=4, kv=2,
+                ff=512, vocab=1000), dtype="float32")
+    lr = 1e-2
+    opt = Adafactor(learning_rate=lr)
+    host = init_train_state(cfg, opt, 0, device="cpu")
+
+    def to_card(tree):
+        return ({k: to_card(v) for k, v in tree.items()}
+                if isinstance(tree, dict) else tree.cuda())
+    card = {"params": copy.deepcopy(host["params"]).cuda(),
+            "opt": to_card(host["opt"])}
+    gen = torch.Generator().manual_seed(5)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 64), generator=gen)
+             for k in ("inputs", "labels")}
+    card_batch = to_card(batch)
+    grad_err = max(float((g.cpu() - w).abs().max() / w.abs().max())
+                   for g, w in zip(
+                       torch.autograd.grad(
+                           loss_fn(card["params"], cfg, card_batch),
+                           list(card["params"].parameters())),
+                       torch.autograd.grad(
+                           loss_fn(host["params"], cfg, batch),
+                           list(host["params"].parameters()))))
+    step = make_train_step(cfg, opt)
+    card, got = step(card, card_batch)
+    host, want = step(host, batch)
+    rel = {key: abs(float(got[key]) - float(want[key])) / abs(float(
+        want[key])) for key in ("loss", "grad_norm")}
+    cpu = dict(host["params"].named_parameters())
+    worst, flipped, off_share = 0.0, 0, 0.0
+    for name, p in card["params"].named_parameters():
+        w = cpu[name].detach()
+        diff = (p.detach().cpu() - w).abs()
+        off = diff > 1e-4 * float(w.abs().max())
+        flipped += int(off.sum())
+        off_share = max(off_share, float(off.float().mean()))
+        worst = max(worst, float(diff.max()))
+    require(grad_err <= 1e-4 and max(rel.values()) <= 1e-4
+            and worst <= 2.1 * lr and off_share <= 1e-3,
+            f"{arch} train step card vs CPU: gradients {grad_err}, {rel}, "
+            f"parameters max |diff| {worst}, {flipped} elements off")
+    print(f"  [{since():.1f} s] reduced {arch} train step (float32, "
+          f"Adafactor) card vs CPU: gradients within {grad_err:.3g} of max "
+          f"|CPU|, loss {float(got['loss']):.6f} (rel {rel['loss']:.3g}), "
+          f"grad_norm rel {rel['grad_norm']:.3g}; parameters: {flipped} "
+          f"elements beyond 1e-4 of max |CPU| (max |diff| {worst:.3g}, lr "
+          f"{lr})", flush=True)
+    return dict(rel, grad_err=grad_err, flipped=flipped)
+
+
+def event_steps(torch, times: list):
+    """An ``on_metrics`` callback for ``train``: a CUDA event and the
+    flash launches at the end of each step (``train`` has synchronized
+    on the step's loss), and finite loss and ``grad_norm`` required."""
+    from repro_torch.kernels import flash_attention as fa
+
+    def record(step, metrics):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        times.append((step, ev, sum(fa.ROUTE_LAUNCHES.values()),
+                      float(metrics["loss"]), float(metrics["grad_norm"])))
+        require(math.isfinite(times[-1][3]) and math.isfinite(times[-1][4]),
+                f"step {step}: loss {times[-1][3]}, grad_norm "
+                f"{times[-1][4]}")
+    return record
+
+
+def step_times(times: list) -> list:
+    """Seconds of each step after the first, from consecutive events."""
+    for _, ev, *_ in times:
+        ev.synchronize()
+    return [a[1].elapsed_time(b[1]) / 1e3 for a, b in zip(times, times[1:])]
+
+
+def optimizer_update_s(torch, opt, state) -> float:
+    """Seconds of the optimizer's update alone on the state's parameters
+    (CUDA events; the second of two updates), with gradients drawn at the
+    parameters' dtype."""
+    model = state["params"]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    grads = {n: torch.randn(p.shape, device="cuda", generator=gen,
+                            dtype=p.dtype).mul_(1e-3)
+             for n, p in model.named_parameters()}
+    for _ in range(2):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        opt.update(grads, state["opt"], model)
+        stop.record()
+        stop.synchronize()
+    return start.elapsed_time(stop) / 1e3
+
+
+def phase_train(torch, np, kernels, ref) -> dict:
+    """Phase 3k: the training path. The flash Function's gradients at
+    ``qwen3_8b``'s and MLA's layer shapes; a reduced train step on the
+    card against the CPU; a reduced ``gemma_2b`` run that learns; a fault
+    recovered from a checkpoint; ``qwen3_8b`` at full width and depth
+    through ``train()`` (Adafactor, B = 1, S = TRAIN_SEQ) and AdamW at
+    full width with ``ADAMW_LAYERS`` layers; the launcher's ``main``."""
+    import contextlib
+    import dataclasses
+    import io
+
+    from repro_torch import configs
+    from repro_torch.analysis import roofline
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.distributed.fault import FaultInjector
+    from repro_torch.distributed.step import init_train_state, \
+        make_train_step
+    from repro_torch.launch import train as TT
+    from repro_torch.models import ShapeConfig
+    from repro_torch.optim import AdamW, cosine_warmup
+
+    fa = kernels.flash_attention
+    t_phase = time.perf_counter()
+
+    def since():
+        return time.perf_counter() - t_phase
+
+    torch.cuda.empty_cache()
+    flush = make_flush(torch)
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    cfg = configs.get(TRAIN_ARCH)
+    mla = configs.get("deepseek_v3")
+    grad_cells = {
+        TRAIN_ARCH: flash_gradient_cell(
+            torch, fa, ref, flush, TRAIN_ARCH,
+            (1, TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+             cfg.head_dim), gen, since),
+        "deepseek_v3 MLA": flash_gradient_cell(
+            torch, fa, ref, flush, "deepseek_v3 MLA",
+            (1, ATTN_CONTEXT["deepseek_v3"], mla.num_heads, mla.num_heads,
+             mla.qk_nope_head_dim + mla.qk_rope_head_dim, mla.v_head_dim),
+            gen, since)}
+    del flush
+    torch.cuda.empty_cache()
+    card_cpu = {arch: card_vs_cpu_step(torch, arch, since)
+                for arch in ("qwen3_8b", "deepseek_v3")}
+
+    # reduced runs through train(): descent, then a fault and its recovery
+    kernels.reset_launch_counts()
+    _, hist = TT.train(TT.TrainRunConfig(
+        arch="gemma_2b", steps=25, global_batch=8, seq_len=32, d_model=64,
+        layers=2, lr=5e-3, vocab_size=128), device="cuda")
+    first = float(np.mean([h["loss"] for h in hist[:5]]))
+    last = float(np.mean([h["loss"] for h in hist[-5:]]))
+    descent_launches = dict(fa.ROUTE_LAUNCHES)
+    require(last < first and descent_launches == {
+        "wgmma_bf16": 0, "fma_fp32": 25 * 2 * 2},
+        f"reduced gemma_2b: first-5 mean {first}, last-5 {last}, launches "
+        f"{descent_launches}")
+    print(f"  [{since():.1f} s] reduced gemma_2b through train() on the "
+          f"card, 25 steps: mean loss of the first 5 {first:.4f}, of the "
+          f"last 5 {last:.4f}; launches {descent_launches} (2 layers, "
+          f"forward and remat)", flush=True)
+    with tempfile.TemporaryDirectory() as ckpt:
+        fault = FaultInjector(fail_at_steps=[13])
+        kernels.reset_launch_counts()
+        _, hist = TT.train(TT.TrainRunConfig(
+            arch="qwen3_8b", steps=24, global_batch=4, seq_len=32,
+            d_model=64, layers=2, vocab_size=128, ckpt_dir=ckpt,
+            ckpt_every=6), fault=fault, device="cuda")
+        seen = [h["step"] for h in hist]
+        fault_launches = fa.ROUTE_LAUNCHES["fma_fp32"]
+        require(13 in fault.fired and seen.count(12) == 2 and seen[-1] == 23
+                and fault_launches == len(seen) * 2 * 2,
+                f"fault recovery: steps {seen}, launches {fault_launches}")
+    print(f"  [{since():.1f} s] fault injected at step 13 of 24, recovered "
+          f"from the step-12 checkpoint in a temporary directory: "
+          f"{len(seen)} steps run, last loss {hist[-1]['loss']:.4f}, "
+          f"{fault_launches} fma_fp32 launches", flush=True)
+
+    # qwen3_8b at full width and depth through train()
+    data_s = time.perf_counter()
+    SyntheticLMData(cfg.vocab_size, TRAIN_SEQ).batch(0, 1)
+    data_s = time.perf_counter() - data_s
+    run = TT.TrainRunConfig(arch=TRAIN_ARCH, use_reduced=False,
+                            steps=TRAIN_STEPS, global_batch=1,
+                            seq_len=TRAIN_SEQ, optimizer="adafactor")
+    shape = ShapeConfig(f"train_{TRAIN_SEQ // 1024}k", TRAIN_SEQ, 1, "train")
+    flops = (roofline.model_flops(cfg, shape)
+             + roofline.attention_flops(cfg, shape))
+    bound_s = flops / roofline.PEAK_FLOPS_BF16
+    times: list = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, hist = TT.train(run, on_metrics=event_steps(torch, times),
+                           device="cuda")
+    run_s = time.perf_counter() - t0
+    full_peak = torch.cuda.max_memory_allocated()
+    full_launches = dict(fa.ROUTE_LAUNCHES)
+    others = {k: n for k, n in kernels.launch_counts().items()
+              if n and k != "flash_attention"}
+    per_step = [b[2] - a[2] for a, b in zip(times, times[1:])]
+    L = cfg.num_layers
+    secs = step_times(times)
+    step_s = sorted(secs[-3:])[1]
+    require(len(times) == TRAIN_STEPS and full_launches == {
+        "wgmma_bf16": TRAIN_STEPS * 2 * L, "fma_fp32": 0} and not others
+        and per_step == [2 * L] * (TRAIN_STEPS - 1),
+        f"{TRAIN_ARCH} full-width training: {len(times)} steps, launches "
+        f"{full_launches}, per step {per_step}, others {others}")
+    # where a step's time goes: one more step on the trained state
+    model = state["params"]
+    step_fn = make_train_step(cfg, TT.build(run)[1])
+    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLMData(
+        cfg.vocab_size, TRAIN_SEQ).batch(TRAIN_STEPS, 1).items()}
+    busy, idle, top, launches = profile_run(
+        torch, lambda: step_fn(state, batch), step_s, top=8)
+    bwd_share = L * grad_cells[TRAIN_ARCH]["bwd_ms"] / 1e3 / busy
+    opt_s = optimizer_update_s(torch, TT.build(run)[1], state)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  [{since():.1f} s] {TRAIN_ARCH} at full width and depth "
+          f"through train() ({L} layers, {n_params} parameters, "
+          f"{cfg.dtype}, Adafactor, remat), B=1 S={TRAIN_SEQ}: losses "
+          f"{[round(t[3], 4) for t in times]}, grad_norm "
+          f"{[round(t[4], 4) for t in times]}; step times (events, from the "
+          f"end of one step to the end of the next, the host's batch "
+          f"included: {data_s * 1e3:.1f} ms) {[round(x, 4) for x in secs]} "
+          f"s, median of steps 2-4 {step_s:.4f} s; bound {bound_s:.4f} s "
+          f"({flops:.4g} flop: model_flops + attention_flops over "
+          f"{roofline.PEAK_FLOPS_BF16:.4g} flop/s), {bound_s / step_s:.2%} "
+          f"of it; peak memory {full_peak} bytes; flash launches "
+          f"{per_step[0]} a step ({full_launches} in {TRAIN_STEPS} steps); "
+          f"{run_s:.1f} s for the run with init; profiled step: device busy "
+          f"{busy * 1e3:.1f} ms, idle share {idle:.1%}, {launches} kernel "
+          f"launches; attention backward {L} x "
+          f"{grad_cells[TRAIN_ARCH]['bwd_ms']:.2f} ms = {bwd_share:.1%} of "
+          f"device busy; the Adafactor update alone {opt_s:.4f} s "
+          f"({opt_s / step_s:.1%} of the step); top kernels:\n{top}",
+          flush=True)
+    del state, model, batch, step_fn
+    torch.cuda.empty_cache()
+
+    # AdamW at full width, depth cut to ADAMW_LAYERS
+    cfg8 = dataclasses.replace(cfg, num_layers=ADAMW_LAYERS)
+    opt = AdamW(learning_rate=cosine_warmup(3e-3, 10, 50), keep_master=False)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    state = init_train_state(cfg8, opt, 0, device="cuda")
+    step_fn = make_train_step(cfg8, opt)
+    data = SyntheticLMData(cfg8.vocab_size, TRAIN_SEQ)
+    adamw_times, adamw_losses = [], []
+    for step in range(ADAMW_STEPS):
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in data.batch(step, 1).items()}
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step_fn(state, batch)
+        stop.record()
+        stop.synchronize()
+        adamw_times.append(start.elapsed_time(stop) / 1e3)
+        adamw_losses.append((float(metrics["loss"]),
+                             float(metrics["grad_norm"])))
+    adamw_peak = torch.cuda.max_memory_allocated()
+    adamw_launches = dict(fa.ROUTE_LAUNCHES)
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in (*state["opt"]["mu"].values(),
+                                *state["opt"]["nu"].values()))
+    adamw_params = sum(p.numel() for p in state["params"].parameters())
+    adamw_s = sorted(adamw_times[1:])[len(adamw_times[1:]) // 2]
+    adamw_opt_s = optimizer_update_s(torch, opt, state)
+    require(all(math.isfinite(a) and math.isfinite(b)
+                for a, b in adamw_losses)
+            and adamw_launches == {"wgmma_bf16": ADAMW_STEPS * 2
+                                   * ADAMW_LAYERS, "fma_fp32": 0},
+            f"AdamW {ADAMW_LAYERS} layers: {adamw_losses}, launches "
+            f"{adamw_launches}")
+    bound8 = (roofline.model_flops(cfg8, shape)
+              + roofline.attention_flops(cfg8, shape)) \
+        / roofline.PEAK_FLOPS_BF16
+    print(f"  [{since():.1f} s] AdamW at full width, {ADAMW_LAYERS} of "
+          f"{L} layers ({adamw_params} parameters, moments {state_bytes} "
+          f"bytes), B=1 S={TRAIN_SEQ}: (loss, grad_norm) "
+          f"{[(round(a, 4), round(b, 4)) for a, b in adamw_losses]}; step "
+          f"times (events) {[round(x, 4) for x in adamw_times]} s, median "
+          f"of steps 2-{ADAMW_STEPS} {adamw_s:.4f} s (bound {bound8:.4f} s), "
+          f"the AdamW update alone {adamw_opt_s:.4f} s; "
+          f"peak memory {adamw_peak} bytes; launches {adamw_launches}",
+          flush=True)
+    del state, step_fn, batch
+    torch.cuda.empty_cache()
+
+    # the launcher's main
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        TT.main(["--arch", "gemma_2b", "--steps", "5", "--global-batch", "2",
+                 "--seq-len", "32", "--d-model", "64", "--layers", "2",
+                 "--device", "cuda"])
+    line = (text.getvalue().splitlines() or [""])[0]
+    require(re.fullmatch(r"first loss [0-9.]+ -> final [0-9.]+ in [0-9.]+s "
+                         r"on cuda:0", line), f"train main: {line!r}")
+    print(f"  [{since():.1f} s] launch.train main --device cuda: {line!r}",
+          flush=True)
+    out = dict(grad_cells=grad_cells, card_cpu=card_cpu, step_s=step_s,
+               step_times=secs, bound_s=bound_s, full_peak=full_peak,
+               per_step=per_step[0], busy=busy, idle=idle,
+               bwd_share=bwd_share, opt_s=opt_s, adamw_s=adamw_s,
+               adamw_opt_s=adamw_opt_s, adamw_peak=adamw_peak,
+               bf16_launches=full_launches["wgmma_bf16"]
+               + adamw_launches["wgmma_bf16"],
+               fp32_launches=descent_launches["fma_fp32"] + fault_launches,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"phase 3k: {out['phase_s']:.1f} s in all ({smi_line()})",
+          flush=True)
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         raise SystemExit(f"no port sources under {SRC}: run chip_smoke.py "
@@ -4050,6 +4491,7 @@ def main() -> None:
     model = phase_model(torch, np, kernels, ref)
     timing["flash_attention_wgmma"]["model_ms"] = model["attn_ms"]
     archs = phase_archs(torch, np, kernels, ref)
+    training = phase_train(torch, np, kernels, ref)
     g12, exact = phase_reference(torch, np, TE, TG, sketches)
     phase_reference_exact(torch, np, TE, g12, exact)
     phase_reference_minhash(torch, np, TE, g12, exact)
@@ -4102,7 +4544,12 @@ def main() -> None:
                       f"S={ARCH_SEQ} {a['prefill_s']:.4f} s (bound "
                       f"{a['bound_s']:.4f} s), {a['launches']['wgmma_bf16']} "
                       f"wgmma_bf16" for arch, a in archs["archs"].items())
-          + f", {archs['phase_s']:.1f} s"
+          + f", {archs['phase_s']:.1f} s; phase 3k {TRAIN_ARCH} train step "
+          f"S={TRAIN_SEQ} {training['step_s']:.4f} s (bound "
+          f"{training['bound_s']:.4f} s), {training['per_step']} wgmma_bf16 "
+          f"launches a step, peak {training['full_peak']} bytes; AdamW "
+          f"{ADAMW_LAYERS} layers {training['adamw_s']:.4f} s, peak "
+          f"{training['adamw_peak']} bytes; {training['phase_s']:.1f} s"
           + f"; total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # each row: the kernel's launches on the paths that run it, each path
@@ -4212,9 +4659,22 @@ def main() -> None:
     model_rows = {"flash_attention_wgmma": model["bf16_launches"]
                   + archs["bf16_launches"],
                   "flash_attention": model["fp32_launches"]}
+    # phase 3k: the training runs (bf16: qwen3_8b through train() and the
+    # AdamW steps; float32: the reduced descent and fault-recovery runs);
+    # the gradient cells and the card-vs-CPU steps compare and do not count
+    train_rows = {"flash_attention_wgmma": training["bf16_launches"],
+                  "flash_attention": training["fp32_launches"]}
+    cell = training["grad_cells"][TRAIN_ARCH]
+    timing["flash_attention_wgmma"].update(
+        train_fwd_bwd_ms=cell["ms"], train_bwd_ms=cell["bwd_ms"],
+        train_plain_fwd_bwd_ms=cell["plain_ms"],
+        train_library_fwd_bwd_ms=cell["library_ms"],
+        train_bound_ms=cell["bound_ms"], train_timed_at=(
+            f"{TRAIN_ARCH} layer, B=1 S={TRAIN_SEQ}, forward + backward"))
     rows = [(name, source, replaces, launches + stream_rows.get(name, 0)
              + adaptive_rows.get(name, 0) + linkpred_rows.get(name, 0)
-             + sharded_rows.get(name, 0) + model_rows.get(name, 0))
+             + sharded_rows.get(name, 0) + model_rows.get(name, 0)
+             + train_rows.get(name, 0))
             for name, source, replaces, launches in rows]
     records = [{
         "name": name, "route": "cuda", "source": source,
@@ -4229,6 +4689,8 @@ def main() -> None:
            if name in sharded_rows else {}),
         **({"model_launches": model_rows[name]}
            if name in model_rows else {}),
+        **({"train_launches": train_rows[name]}
+           if name in train_rows else {}),
         "max_abs_err": timing[name]["max_abs_err"],
         "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
         "bound_ms": timing[name]["bound_ms"],
@@ -4242,7 +4704,7 @@ def main() -> None:
                       "old_route_ms", "warm_ms", "real_rows", "deep_ms",
                       "deep_warm_ms", "deep_real_rows", "khash_gather_ms",
                       "khash_gather_warm_ms")
-           or key.startswith("clique_")},
+           or key.startswith(("clique_", "train_"))},
     } for name, source, replaces, launches in rows]
     print(smi)
     print(json.dumps({"kernels": records}))

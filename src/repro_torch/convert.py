@@ -1,7 +1,10 @@
 """Carry state from the reference's arrays, given as numpy, into the port.
 
 The parity tests hand one graph and one sketch to both packages through
-these functions, so both sides see the same integers.
+these functions, so both sides see the same integers; and one model, or
+one train state (parameters, optimizer state, compression errors), so
+both sides take the same step. :func:`reference_tree` maps the port's
+per-layer tensors back onto the reference's stacked layout.
 """
 from __future__ import annotations
 
@@ -105,6 +108,71 @@ def _dotted(tree, prefix: str, out: dict) -> dict:
     return out
 
 
+def port_leaves(tree, cfg) -> dict:
+    """A reference tree shaped like ``init_params``'s (``blocks[b][slot]``
+    stacked over repeats) as ``{port name: leaf}``: layer ``i``'s leaves
+    under ``layers.i.``, the others under their dotted paths. Leaves below
+    a parameter (Adafactor's ``{"vr", "vc"}``) come as ``<name>.<key>``."""
+    out = {}
+    for key, value in tree.items():
+        if key == "blocks":
+            for i, layer in enumerate(unstack_layers(value, cfg)):
+                _dotted(layer, f"layers.{i}.", out)
+        elif isinstance(value, dict):
+            _dotted(value, f"{key}.", out)
+        else:
+            out[key] = value
+    return out
+
+
+def _nest(flat: dict) -> dict:
+    out: dict = {}
+    for name, value in flat.items():
+        *path, last = name.split(".")
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = value
+    return out
+
+
+def reference_tree(flat, cfg) -> dict:
+    """The inverse of :func:`port_leaves`: ``{port name: tensor or array}``
+    (parameters, gradients, optimizer moments, ``<name>.<key>`` leaves) as
+    the reference's tree, each block's layers stacked along a leading
+    repeat axis; leaves as numpy arrays (bfloat16 tensors widened to
+    float32, which numpy holds)."""
+    from .models.model import build_plan
+
+    per_layer: dict = {}
+    rest = {}
+    for name, value in flat.items():
+        if isinstance(value, torch.Tensor):
+            value = value.detach().cpu()
+            if value.dtype == torch.bfloat16:
+                value = value.float()
+        arr = np.asarray(value)
+        parts = name.split(".")
+        if parts[0] == "layers":
+            per_layer.setdefault(int(parts[1]), {})[
+                ".".join(parts[2:])] = arr
+        else:
+            rest[name] = arr
+    out = _nest(rest)
+    if per_layer:
+        blocks, i = [], 0
+        for blk in build_plan(cfg):
+            slots = [[] for _ in blk.sigs]
+            for _ in range(blk.repeat):
+                for si in range(len(blk.sigs)):
+                    slots[si].append(per_layer[i])
+                    i += 1
+            blocks.append([_nest({k: np.stack([layer[k] for layer in reps])
+                                  for k in reps[0]}) for reps in slots])
+        out["blocks"] = blocks
+    return out
+
+
 def model_params_from_numpy(params, cfg,
                             device: DeviceLike = DEFAULT_DEVICE):
     """A port :class:`~repro_torch.models.Model` holding the numbers of the
@@ -119,10 +187,7 @@ def model_params_from_numpy(params, cfg,
 
     dev = resolve_device(device)
     model = Model(cfg, None, dev)
-    flat = {k: v for k, v in params.items() if k != "blocks"
-            and not isinstance(v, dict)}
-    for i, layer in enumerate(unstack_layers(params["blocks"], cfg)):
-        _dotted(layer, f"layers.{i}.", flat)
+    flat = port_leaves(params, cfg)
     state = model.state_dict()
     if set(flat) != set(state):
         raise ValueError(f"reference leaves and port weights differ: only "
@@ -136,3 +201,45 @@ def model_params_from_numpy(params, cfg,
                                  f"port shape {tuple(t.shape)}")
             t.copy_(torch.from_numpy(arr))
     return model
+
+
+def train_state_from_numpy(state, cfg, device: DeviceLike = DEFAULT_DEVICE):
+    """A port train state (``distributed.step``'s layout) holding the
+    numbers of the reference's: ``params`` (:func:`model_params_from_numpy`,
+    requiring grad), ``opt`` (AdamW's ``mu``, ``nu``, ``master``,
+    Adafactor's ``v`` of ``{"vr", "vc"}`` or ``{"v"}``, and ``step``) and
+    ``ef``, each leaf per layer under the parameter's name, float32."""
+    dev = resolve_device(device)
+    model = model_params_from_numpy(state["params"], cfg, dev)
+    names = [n for n, _ in model.named_parameters()]
+
+    def f32(x):
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(dev)
+
+    def by_name(tree):
+        flat = port_leaves(tree, cfg)
+        if set(flat) != set(names):
+            raise ValueError(f"leaves differ from the parameters: "
+                             f"{sorted(set(flat) ^ set(names))}")
+        return {n: f32(flat[n]) for n in names}
+
+    opt = {}
+    for key, tree in state["opt"].items():
+        if key == "step":
+            opt[key] = torch.tensor(int(np.asarray(tree)), dtype=torch.int32,
+                                    device=dev)
+        elif key == "v":
+            moments: dict = {}
+            for leaf, arr in port_leaves(tree, cfg).items():
+                name, part = leaf.rsplit(".", 1)
+                moments.setdefault(name, {})[part] = f32(arr)
+            if set(moments) != set(names):
+                raise ValueError("Adafactor moments differ from the "
+                                 "parameters")
+            opt[key] = moments
+        else:
+            opt[key] = by_name(tree)
+    out = {"params": model.requires_grad_(True), "opt": opt}
+    if "ef" in state:
+        out["ef"] = by_name(state["ef"])
+    return out

@@ -1,9 +1,7 @@
-"""Data-side uses of ProbGraph's sketches: MinHash near-duplicate dedup.
-
-Only the dedup names are ported here; the reference's ``pipeline.py``
-(synthetic LM batches) belongs to its LLM scaffolding, which no mining path
-uses and which is not part of the port yet.
-"""
+"""Data for the port: MinHash near-duplicate dedup (ProbGraph's sketches on
+documents) and the synthetic LM batches that training reads."""
 from .dedup import document_sketches, jaccard_estimate, k_for, minhash_dedup
+from .pipeline import SyntheticLMData, TokenBatcher
 
-__all__ = ["document_sketches", "jaccard_estimate", "k_for", "minhash_dedup"]
+__all__ = ["SyntheticLMData", "TokenBatcher", "document_sketches",
+           "jaccard_estimate", "k_for", "minhash_dedup"]

@@ -1,4 +1,5 @@
-"""Causal, optionally windowed, GQA attention forward: the CUDA kernels.
+"""Causal, optionally windowed, GQA attention: the CUDA forward kernels and
+the gradient.
 
 The port of ``repro.kernels.flash_attention``, by two routes that follow
 the inputs' type:
@@ -26,6 +27,15 @@ plain version in :mod:`repro_torch.kernels.ref`. On CUDA a build,
 tensor-map or launch failure raises; nothing falls back. Each launch adds
 one to :data:`LAUNCHES` and one to its route in :data:`ROUTE_LAUNCHES`.
 
+Both entry points are differentiable: when grad is on and an input
+requires it, they run through :class:`FlashAttentionFn`, whose forward is
+the same kernel launch (the plain version on CPU tensors) and whose
+backward, :func:`attention_backward`, recomputes the attention in plain
+PyTorch one block of :data:`BACKWARD_ROWS` query rows at a time and
+differentiates it, as the reference's training differentiates its
+chunked plain attention (the TPU kernel has no backward). Without grad
+(serving, ``torch.inference_mode``) the kernel is called directly.
+
 TMA reads the bfloat16 inputs in place when their head dim is a multiple
 of 8 and their base and strides are multiples of 16 bytes; an input that
 breaks that is first copied, contiguous and zero-padded to a multiple of
@@ -50,6 +60,9 @@ ROUTE_LAUNCHES: Dict[str, int] = {"wgmma_bf16": 0, "fma_fp32": 0}
 
 #: largest head dim the kernel takes
 MAX_HEAD_DIM = 256
+#: query rows one step of the plain backward recomputes at a time (the
+#: reference's ``chunk_q``)
+BACKWARD_ROWS = 2048
 
 _VOIDP = ctypes.c_void_p
 #: dtype -> (route, library, entry point, error-string function)
@@ -168,6 +181,47 @@ def _operands(q, k, v):
                  for x in (q, k, v))
 
 
+def _needs_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       dout: torch.Tensor, window: int):
+    """dq, dk, dv of :func:`flash_attention` (q [B, Sq, H, D], k/v [B, Skv,
+    KV, D]) for the output gradient ``dout`` [B, Sq, H, D]: the plain
+    attention (:func:`ref.attention_rows`) recomputed under autograd for
+    :data:`BACKWARD_ROWS` query rows at a time, each block against only
+    the keys it reaches, so no [B, H, Sq, Skv] tensor exists whole.
+    Gradients accumulate in float32 and come back in the inputs' dtypes."""
+    with torch.enable_grad():
+        qf, kf, vf = (x.detach().to(torch.float32).requires_grad_()
+                      for x in (q, k, v))
+        for s0 in range(0, q.shape[1], BACKWARD_ROWS):
+            s1 = min(q.shape[1], s0 + BACKWARD_ROWS)
+            out = ref.attention_rows(qf, kf, vf, s0, s1, window)
+            out.backward(dout[:, s0:s1].to(torch.float32))
+    grads = [x.grad if x.grad is not None else torch.zeros_like(x)
+             for x in (qf, kf, vf)]
+    return tuple(g.to(x.dtype) for g, x in zip(grads, (q, k, v)))
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """:func:`flash_attention` with a gradient: the forward launches the
+    kernel (plain version on the CPU) and saves only q, k and v; the
+    backward is :func:`attention_backward`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int):
+        ctx.window = window
+        ctx.save_for_backward(q, k, v)
+        return _forward(q, k, v, window)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        return (*attention_backward(q, k, v, dout, ctx.window), None)
+
+
 def flash_attention_folded(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, groups: int,
                            window: int = 0) -> torch.Tensor:
@@ -177,6 +231,10 @@ def flash_attention_folded(q: torch.Tensor, k: torch.Tensor,
     if groups < 1 or q.shape[0] != k.shape[0] * groups:
         raise ValueError(f"q has {q.shape[0]} heads, k {k.shape[0]}: "
                          f"expected q heads = k heads x groups ({groups})")
+    if _needs_grad(q, k, v):
+        # head i reading kv head i // groups is the standard layout's GQA
+        return flash_attention(*(x.transpose(0, 1)[None] for x in (q, k, v)),
+                               window=window)[0].transpose(0, 1)
     if not q.is_cuda:
         return ref.flash_attention_folded(q, k, v, groups=groups,
                                           window=window)
@@ -192,19 +250,14 @@ def flash_attention_folded(q: torch.Tensor, k: torch.Tensor,
     return out if out.shape[-1] == d else out[..., :d].contiguous()
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: int = 0) -> torch.Tensor:
-    """Standard layout: q [B, S, H, D], k/v [B, Skv, KV, D] -> [B, S, H, D]
-    in q's dtype; H must be a multiple of KV."""
-    _check(q, k, v, window, 4)
-    b, sq, h, _ = q.shape
-    kvh = k.shape[2]
-    if k.shape[0] != b or kvh < 1 or h % kvh:
-        raise ValueError(f"q [B={b}, H={h}] and k [B={k.shape[0]}, "
-                         f"KV={kvh}]: batches must match and H divide by KV")
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             window: int) -> torch.Tensor:
+    """The standard layout's forward: the kernel on CUDA tensors, the
+    plain version on CPU tensors (inputs checked by the caller)."""
     if not q.is_cuda:
         return ref.causal_attention(q, k, v, window)
-    d = q.shape[-1]
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
     q, k, v = _operands(q, k, v)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     _launch(q, k, v, out, bh=b * h, sq=sq, skv=k.shape[1], heads_q=h,
@@ -216,6 +269,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out if out.shape[-1] == d else out[..., :d].contiguous()
 
 
-__all__ = ["LAUNCHES", "MAX_HEAD_DIM", "ROUTE_LAUNCHES", "flash_attention",
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int = 0) -> torch.Tensor:
+    """Standard layout: q [B, S, H, D], k/v [B, Skv, KV, D] -> [B, S, H, D]
+    in q's dtype; H must be a multiple of KV. Differentiable
+    (:class:`FlashAttentionFn`) when grad is on and an input requires it."""
+    _check(q, k, v, window, 4)
+    b, sq, h, _ = q.shape
+    kvh = k.shape[2]
+    if k.shape[0] != b or kvh < 1 or h % kvh:
+        raise ValueError(f"q [B={b}, H={h}] and k [B={k.shape[0]}, "
+                         f"KV={kvh}]: batches must match and H divide by KV")
+    if _needs_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, int(window))
+    return _forward(q, k, v, int(window))
+
+
+__all__ = ["BACKWARD_ROWS", "FlashAttentionFn", "LAUNCHES", "MAX_HEAD_DIM",
+           "ROUTE_LAUNCHES", "attention_backward", "flash_attention",
            "flash_attention_folded", "reset_launch_counts", "tma_operand",
            "tma_ready"]

@@ -139,6 +139,45 @@ _ATTN_CHUNK_CELLS = 1 << 28
 NEG_INF = -1e30
 
 
+def _band(s0: int, s1: int, skv: int, window: int):
+    """The keys [lo, hi) that query rows [s0, s1) can see; every key when
+    a row of them sees none (it then averages every value)."""
+    lo, hi = 0, min(skv, s1)
+    if window:
+        lo = max(0, s0 - window + 1)
+        if s1 - window > skv - 1:          # a row sees no key
+            lo, hi = 0, skv
+    return lo, hi
+
+
+def attention_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   s0: int, s1: int, window: int = 0) -> torch.Tensor:
+    """Query rows [s0, s1) of :func:`causal_attention` in float32, against
+    only the keys those rows can reach; differentiable.
+
+    q: [B, Sq, H, D], k: [B, Skv, KV, D], v: [B, Skv, KV, Dv], all float32
+    -> [B, s1 - s0, H, Dv] float32. q is scaled by 1/sqrt(D) before the
+    product; masked scores are -1e30.
+    """
+    b, _, h, d = q.shape
+    skv, kvh, dv = k.shape[1], k.shape[2], v.shape[-1]
+    g, c = h // kvh, s1 - s0
+    lo, hi = _band(s0, s1, skv, window)
+    qc = (q[:, s0:s1] * (1.0 / math.sqrt(d))).reshape(b, c, kvh, g, d)
+    qc = qc.permute(0, 2, 3, 1, 4).reshape(b, kvh, g * c, d)
+    sc = torch.matmul(qc, k[:, lo:hi].permute(0, 2, 3, 1))
+    qpos = torch.arange(s0, s1, device=q.device)[:, None]
+    kpos = torch.arange(lo, hi, device=q.device)[None, :]
+    mask = kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    sc = torch.where(mask, sc.reshape(b, kvh, g, c, hi - lo), NEG_INF)
+    out = torch.matmul(sc.softmax(dim=-1).reshape(b, kvh, g * c, hi - lo),
+                       v[:, lo:hi].permute(0, 2, 1, 3))
+    return out.reshape(b, kvh, g, c, dv).permute(0, 3, 1, 2, 4).reshape(
+        b, c, h, dv)
+
+
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      window: int = 0) -> torch.Tensor:
     """Causal (optionally sliding-window) attention with an fp32 softmax.
@@ -151,40 +190,19 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Everything is computed in float32, q scaled by 1/sqrt(D) before the
     product as the TPU kernel does. Queries go in chunks of at most
-    ``_ATTN_CHUNK_CELLS`` scores, each against only the keys its band can
-    reach, so the function runs at S = 32K.
+    ``_ATTN_CHUNK_CELLS`` scores (:func:`attention_rows`), each against
+    only the keys its band can reach, so the function runs at S = 32K.
     """
-    b, sq, h, d = q.shape
-    skv, kvh = k.shape[1], k.shape[2]
-    g = h // kvh
-    scale = 1.0 / math.sqrt(d)
-    qf = (q.to(torch.float32) * scale).reshape(b, sq, kvh, g, d)
-    qf = qf.permute(0, 2, 3, 1, 4)                    # [B, KV, g, Sq, D]
-    kf = k.to(torch.float32).permute(0, 2, 3, 1)      # [B, KV, D, Skv]
-    vf = v.to(torch.float32).permute(0, 2, 1, 3)      # [B, KV, Skv, D]
-    out = torch.empty((b, kvh, g, sq, d), dtype=torch.float32,
+    b, sq, h, _ = q.shape
+    skv = k.shape[1]
+    qf, kf, vf = (x.to(torch.float32) for x in (q, k, v))
+    out = torch.empty((b, sq, h, v.shape[-1]), dtype=torch.float32,
                       device=q.device)
     step = max(1, _ATTN_CHUNK_CELLS // max(b * h * skv, 1))
     for s0 in range(0, sq, step):
         s1 = min(sq, s0 + step)
-        lo, hi = 0, min(skv, s1)
-        if window:
-            lo = max(0, s0 - window + 1)
-            if s1 - window > skv - 1:          # a row sees no key
-                lo, hi = 0, skv
-        c = s1 - s0
-        qc = qf[:, :, :, s0:s1].reshape(b, kvh, g * c, d)
-        sc = torch.matmul(qc, kf[..., lo:hi]).reshape(b, kvh, g, c, hi - lo)
-        qpos = torch.arange(s0, s1, device=q.device)[:, None]
-        kpos = torch.arange(lo, hi, device=q.device)[None, :]
-        mask = kpos <= qpos
-        if window:
-            mask &= kpos > qpos - window
-        sc = torch.where(mask, sc, NEG_INF).softmax(dim=-1)
-        out[:, :, :, s0:s1] = torch.matmul(
-            sc.reshape(b, kvh, g * c, hi - lo), vf[:, :, lo:hi]
-        ).reshape(b, kvh, g, c, d)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+        out[:, s0:s1] = attention_rows(qf, kf, vf, s0, s1, window)
+    return out.to(q.dtype)
 
 
 def flash_attention_folded(q: torch.Tensor, k: torch.Tensor,

@@ -14,8 +14,10 @@ Prefill attention, MLA's included, runs through :class:`AttentionCore`,
 the only caller of the flash kernel on the model's path: CUDA tensors
 launch the kernel, CPU tensors run its plain version. Decode attention
 (one query against the cache) and the MoE's expert products are plain
-torch, as the reference computes them outside any kernel. The MoE's
-``moe_aux_loss`` waits for training (ROADMAP Queue 1, item 3).
+torch, as the reference computes them outside any kernel. The kernel
+call is differentiable (``kernels.flash_attention.FlashAttentionFn``), so
+training gets q, k and v's gradients through it; ``moe_aux_loss`` is the
+reference's load-balancing loss, which its ``loss_fn`` does not add.
 """
 from __future__ import annotations
 
@@ -440,6 +442,13 @@ def moe_capacity(tokens: int, cfg: ModelConfig) -> int:
     return max(int(math.ceil(tokens * k / e * cfg.capacity_factor)), 1)
 
 
+def _top_k(probs: torch.Tensor, k: int):
+    """The k largest probabilities of each row and their expert ids, ties
+    to the smaller id (as ``lax.top_k``): a stable descending sort."""
+    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[:, :k], ids[:, :k]
+
+
 def moe_route(p: MoE, xt: torch.Tensor, cfg: ModelConfig) -> Routing:
     """The reference's routing of ``xt`` [t, d], integer for integer: a
     float32 softmax of the router's logits, the top k by probability (ties
@@ -451,9 +460,7 @@ def moe_route(p: MoE, xt: torch.Tensor, cfg: ModelConfig) -> Routing:
     e, k = cfg.moe_num_experts, cfg.moe_top_k
     cap = moe_capacity(t, cfg)
     logits = xt.float() @ p.router
-    probs, order_e = torch.sort(torch.softmax(logits, dim=-1), dim=-1,
-                                descending=True, stable=True)
-    gates, idx = probs[:, :k], order_e[:, :k]
+    gates, idx = _top_k(torch.softmax(logits, dim=-1), k)
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
     e_flat = idx.reshape(t * k)
     order = torch.argsort(e_flat, stable=True)
@@ -491,3 +498,15 @@ def moe_fwd(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.moe_shared_experts:
         y = y + mlp_fwd(p.shared, x, cfg).reshape(t, d)
     return y.reshape(b, s, d)
+
+
+def moe_aux_loss(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Switch-style load-balancing auxiliary loss: E · Σ_e (share of the
+    top-k assignments routed to e) · (mean router probability of e), in
+    float32 over the B·S tokens of x [B, S, d]."""
+    e = cfg.moe_num_experts
+    probs = torch.softmax(x.reshape(-1, x.shape[-1]).float() @ p.router,
+                          dim=-1)
+    _, idx = _top_k(probs, cfg.moe_top_k)
+    frac = F.one_hot(idx, e).to(torch.float32).mean(dim=(0, 1))
+    return e * torch.sum(frac * probs.mean(dim=0))

@@ -10,8 +10,12 @@ reference's ``blocks[b][slot]`` leaves into. A layer is a mixer
 (``attn``, ``mla`` or ``ssm``) and a feed-forward (``mlp``, ``moe`` or
 ``none``), each pre-normed and added to the residual.
 
-Entry points run on CUDA unless the caller passes ``device="cpu"``; the
-model's weights never require grad (this slice serves, it does not train).
+Entry points run on CUDA unless the caller passes ``device="cpu"``. The
+weights are created without ``requires_grad``, for serving; the training
+state (``distributed.step.init_train_state``) turns it on. ``loss_fn`` is
+the reference's train loss; with ``cfg.remat`` and grad on, each layer's
+activations are recomputed in the backward
+(``torch.utils.checkpoint``), as the reference checkpoints its scan body.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .._device import DEFAULT_DEVICE, DeviceLike, resolve_device
 from ..distributed import sharding as SH
@@ -228,14 +233,18 @@ def forward(params: Model, cfg: ModelConfig, inputs: torch.Tensor,
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
+    remat = cfg.remat and torch.is_grad_enabled()
     for layer in params.layers:
-        x = layer(x, positions)
+        x = (checkpoint(layer, x, positions, use_reentrant=False) if remat
+             else layer(x, positions))
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     return _lm_head(params, cfg, x)
 
 
 def _lm_head(params: Model, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """Logits over the padded vocab; the pad region set to -1e30 in place."""
+    """Logits over the padded vocab; the pad region set to -1e30 in place
+    (safe under autograd: the product's backward does not read its
+    output)."""
     if cfg.tie_embeddings:
         logits = x @ params.embed.t()
     else:
@@ -243,6 +252,23 @@ def _lm_head(params: Model, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.padded_vocab != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = L.NEG_INF
     return logits
+
+
+def loss_fn(params: Model, cfg: ModelConfig,
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Causal LM cross-entropy (mean over tokens) plus the z-loss
+    1e-4 · mean(logz²), in float32: ``batch`` holds ``inputs`` (tokens
+    [B, S] or embeddings [B, S, d]), ``labels`` [B, S] and optionally
+    ``positions``. logz = log Σ exp(logit - m) + m with the row max m
+    detached, as the reference's ``stop_gradient``; the gold logit is
+    gathered (the reference's masked sum over the vocab picks the same
+    single value)."""
+    logits = forward(params, cfg, batch["inputs"],
+                     batch.get("positions")).float()
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    logz = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+    gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
+    return torch.mean(logz - gold) + 1e-4 * torch.mean(logz.square())
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

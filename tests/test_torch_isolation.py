@@ -6,8 +6,9 @@
   (those of the tenth slice too: generators, checkpoint restores, dedup,
   the ragged adaptive converter and the launcher's ``--restore``; of
   the eleventh: ``mine()``, the spawn helper, meshes and sharded
-  restores; and of the model path: the model, its cache, the converter
-  and the server).
+  restores; of the model path: the model, its cache, the converter and
+  the server; and of the training path: ``train()``, its launcher, the
+  train state and its converter).
 * ``use_kernel=True`` with CPU tensors raises.
 * A missing nvcc raises a build error instead of returning a fallback.
 * ``chip_smoke.py`` fails without a GPU, and outside the checkout.
@@ -182,6 +183,41 @@ def test_model_path_entry_points_need_a_gpu(no_cuda):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
     assert init_params(cfg, device="cpu").final_norm.device.type == "cpu"
+
+
+def test_training_entry_points_need_a_gpu(no_cuda):
+    """train(), the train launcher's main(), init_train_state and the
+    train-state converter raise without a GPU unless given device='cpu';
+    on the CPU the trained model decodes through make_decode_step."""
+    from repro_torch import configs, convert
+    from repro_torch.distributed.step import init_train_state
+    from repro_torch.launch import train
+    from repro_torch.models import reduced
+    from repro_torch.optim import AdamW
+
+    run = train.TrainRunConfig(arch="gemma_2b", steps=2, global_batch=2,
+                               seq_len=8, d_model=32, layers=1)
+    cfg = reduced(configs.get("qwen3_8b"))
+    for call in (lambda: train.train(run),
+                 lambda: train.main(["--steps", "2"]),
+                 lambda: init_train_state(cfg, AdamW()),
+                 lambda: convert.train_state_from_numpy({}, cfg)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    state, hist = train.train(run, device="cpu")
+    assert [h["step"] for h in hist] == [0, 1]
+    from repro_torch.distributed.step import make_decode_step
+    from repro_torch.models import decode_step, init_cache
+
+    model, tcfg = state["params"], train.build(run)[0]
+    tokens = torch.tensor([[3], [5]])
+    with torch.no_grad():
+        got, _ = make_decode_step(tcfg)(model, init_cache(tcfg, 2, 4,
+                                                          device="cpu"),
+                                        tokens)
+        want, _ = decode_step(model, init_cache(tcfg, 2, 4, device="cpu"),
+                              tcfg, tokens)
+    assert torch.equal(got, want)
 
 
 def test_use_kernel_on_cpu_tensors_raises():

@@ -17,6 +17,12 @@ the fp32 P), which moves an output by at most 2^-9·max|v|: it agrees
 within atol = 1e-3 + 2^-8·max|v| (twice that bound, for the accumulation
 order and where the scale is applied, on top of one bf16 rounding of the
 output), rtol 1e-2, and a mean error of at most 1e-3.
+
+The attention's gradient (``FlashAttentionFn``: the kernel forward, the
+plain recompute backward) is held against autograd through the plain
+version on the same tensors, and a reduced float32 train step on the
+card against the same step on the CPU; the bounds are in the tests'
+docstrings.
 """
 import test_torch_threads  # noqa: F401 (caps torch's threads under xdist)
 import pytest
@@ -1049,3 +1055,156 @@ def test_model_on_the_card_equals_the_cpu(cuda, dtype):
             assert err_steps <= tol_steps, (arch, "decode", err_steps,
                                             tol_steps)
             assert flash_attention.LAUNCHES["flash_attention"] == attn
+
+
+#: the flash gradient's cases on the card, (B, S, H, KV, D, Dv, window):
+#: GQA, S = 2,500 (two blocks of the plain backward), a window, and MLA's
+#: narrow v (Dv 128 against D 192, padded by ``AttentionCore``)
+_GRAD_CASES = [(2, 300, 4, 2, 64, 64, 0), (1, 2500, 4, 1, 128, 128, 0),
+               (2, 700, 4, 4, 64, 64, 96), (1, 513, 8, 8, 192, 128, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_gradient_equals_plain_autograd(cuda, dtype):
+    """``FlashAttentionFn`` on the card (the kernel's forward, one launch
+    on the dtype's route; the plain recompute's backward) against autograd
+    through ``ref.causal_attention`` on the same tensors: the output within
+    the forward's tolerance; dq, dk, dv in the inputs' dtype, float32
+    within 1e-5 · max |plain| (the same float32 arithmetic in other
+    blocks), bfloat16 within one bf16 ulp (2^-7 of the value: both round
+    a float32 gradient once) plus 1e-6 · max |plain|."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.layers import AttentionCore
+
+    for b, s, h, kv, d, dv, window in _GRAD_CASES:
+        gen = torch.Generator(device=cuda).manual_seed(s + d)
+
+        def draw(*shape):
+            return torch.randn(shape, device=cuda, generator=gen).to(dtype)
+        q, k, v = draw(b, s, h, d), draw(b, s, kv, d), draw(b, s, kv, dv)
+        dout = draw(b, s, h, dv)
+        for x in (q, k, v):
+            x.requires_grad_()
+        before = flash_attention.ROUTE_LAUNCHES[_ROUTE[dtype]]
+        out = AttentionCore(window)(q, k, v)
+        assert flash_attention.ROUTE_LAUNCHES[_ROUTE[dtype]] == before + 1
+        got = torch.autograd.grad(out, (q, k, v), dout)
+        want_out = ref.causal_attention(q, k, F.pad(v, (0, d - dv)),
+                                        window)[..., :dv]
+        want = torch.autograd.grad(want_out, (q, k, v), dout)
+        _assert_attn_close(out.detach(), want_out.detach(), v.detach())
+        for name, g, w in zip("qkv", got, want):
+            assert g.dtype == dtype and g.shape == w.shape, name
+            diff = (g.float() - w.float()).abs()
+            scale = float(w.float().abs().max())
+            if dtype == torch.float32:
+                assert float(diff.max()) <= 1e-5 * scale, (name, s)
+            else:
+                assert bool((diff <= 2.0 ** -7 * w.float().abs()
+                             + 1e-6 * scale).all()), (name, s,
+                                                      float(diff.max()))
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.mark.parametrize("arch", ["qwen3_8b", "phi35_moe", "deepseek_v3",
+                                  "mamba2_130m"])
+def test_train_step_on_the_card_equals_the_cpu(cuda, arch):
+    """A reduced float32 ``make_train_step`` step (Adafactor, lr 1e-2,
+    remat on) on the card against the same step on the CPU from the same
+    state. The attention and MLA layers launch the float32 kernel twice
+    each (forward and remat). Every gradient lies within 1e-4 · max |CPU|
+    of the CPU's (float32 in another summation order; observed <= 5e-6);
+    loss and ``grad_norm`` within rtol 1e-4. The parameters agree within
+    1e-4 · max |CPU| on all but 1e-3 of each tensor's elements and within
+    2.1 · lr everywhere: Adafactor's first update of an unfactored leaf is
+    lr · g / |g|, so a gradient that is zero up to its float32 error
+    (about 1 element a config in these runs) may step the other way."""
+    import copy
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.distributed.step import init_train_state, \
+        make_train_step
+    from repro_torch.models import layer_sigs, loss_fn, reduced
+    from repro_torch.optim import Adafactor
+
+    cfg = dataclasses.replace(
+        reduced(configs.get(arch), layers=3, d_model=256, heads=4, kv=2,
+                ff=512, vocab=1000), dtype="float32")
+    lr = 1e-2
+    opt = Adafactor(learning_rate=lr)
+    host = init_train_state(cfg, opt, 0, device="cpu")
+    card = {"params": copy.deepcopy(host["params"]).to(cuda),
+            "opt": _tree_to(host["opt"], cuda)}
+    gen = torch.Generator().manual_seed(5)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 64), generator=gen)
+             for k in ("inputs", "labels")}
+    card_batch = _tree_to(batch, cuda)
+    for (name, p), g, w in zip(
+            host["params"].named_parameters(),
+            torch.autograd.grad(loss_fn(card["params"], cfg, card_batch),
+                                list(card["params"].parameters())),
+            torch.autograd.grad(loss_fn(host["params"], cfg, batch),
+                                list(host["params"].parameters()))):
+        err = float((g.cpu() - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()), (arch, name, err)
+    attn = sum(m in ("attn", "mla") for m, _ in layer_sigs(cfg))
+    step = make_train_step(cfg, opt)
+    flash_attention.reset_launch_counts()
+    card, got = step(card, card_batch)
+    torch.cuda.synchronize()
+    assert flash_attention.ROUTE_LAUNCHES == {"wgmma_bf16": 0,
+                                              "fma_fp32": 2 * attn}, arch
+    host, want = step(host, batch)
+    for key in ("loss", "grad_norm"):
+        assert float(got[key]) == pytest.approx(float(want[key]), rel=1e-4)
+    cpu = dict(host["params"].named_parameters())
+    for name, p in card["params"].named_parameters():
+        w = cpu[name].detach()
+        diff = (p.detach().cpu() - w).abs()
+        off = diff > 1e-4 * float(w.abs().max())
+        assert float(diff.max()) <= 2.1 * lr and \
+            float(off.float().mean()) <= 1e-3, (arch, name,
+                                               float(diff.max()))
+
+
+def test_every_parameter_gets_a_gradient_on_the_card(cuda):
+    """Every family in bfloat16 on the card: ``loss_fn``'s gradient reaches
+    every parameter, finite and not all zero (the projections behind q, k
+    and v get theirs through the kernel's Function), and the attention
+    and MLA layers launch the bf16 kernel twice each under remat."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import init_params, layer_sigs, loss_fn, reduced
+
+    for arch in ("qwen3_8b", "gemma_2b", "h2o_danube3_4b", "qwen2_vl_72b",
+                 "phi35_moe", "deepseek_v3", "mamba2_130m", "jamba15_large"):
+        cfg = dataclasses.replace(reduced(configs.get(arch), layers=3),
+                                  dtype="bfloat16")
+        model = init_params(cfg, 0, device=cuda).requires_grad_()
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        s = 64
+        inputs = (torch.randint(0, cfg.vocab_size, (2, s), device=cuda,
+                                generator=gen)
+                  if cfg.input_mode == "tokens" else
+                  torch.randn((2, s, cfg.d_model), device=cuda,
+                              generator=gen))
+        batch = {"inputs": inputs,
+                 "labels": torch.randint(0, cfg.vocab_size, (2, s),
+                                         device=cuda, generator=gen)}
+        attn = sum(m in ("attn", "mla") for m, _ in layer_sigs(cfg))
+        names, params = zip(*model.named_parameters())
+        flash_attention.reset_launch_counts()
+        grads = torch.autograd.grad(loss_fn(model, cfg, batch), params)
+        torch.cuda.synchronize()
+        assert flash_attention.ROUTE_LAUNCHES["wgmma_bf16"] == 2 * attn, arch
+        for name, g in zip(names, grads):
+            assert g is not None and bool(torch.isfinite(g).all()) and \
+                bool(g.abs().amax() > 0), (arch, name)
