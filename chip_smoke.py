@@ -222,6 +222,23 @@ Phases, each printed as it runs:
      ``ADAMW_LAYERS`` of 36 layers through ``make_train_step``: step time,
      peak memory, launches. Last, the launcher's ``main --device cuda``.
      Each run's launch counts are zeroed just before and read just after.
+  3l. Production sharding and the dry run, in subprocesses (a fake
+     process group may meet no other). On rank 0 of a fake 16×16 group:
+     the flash kernel under ``local_map`` (``qwen3_8b``'s 2 local query
+     heads and the kv head they read, local batch 16, S = 4,096, bf16)
+     against the plain version on the same local q, k, v; then
+     ``qwen3_8b``'s ``train_4k`` local shard at full width and depth for
+     real, with no other process beside it (``launch.dryrun.run_local_shard``: local batch 16 × 4,096,
+     bf16, remat, AdamW with ``keep_master``, ``SHARD_STEPS`` steps, the
+     last profiled): step times by CUDA events, peak memory against the
+     dry run's estimate, exactly 72 flash launches a step, idle share.
+     The collectives of a fake group are no-ops, so the time excludes
+     communication and the loss is not a result. Then ``DRYRUN_CELLS``
+     through ``python -m repro_torch.launch.dryrun --device cuda`` (one
+     subprocess each, in parallel): per-device flops, bytes, collective
+     bytes, the memory estimate, the roofline terms, the bottleneck and
+     ``useful_ratio``, which for ``qwen3_8b`` ``train_4k`` must lie in
+     ``USEFUL_RANGE``.
   4. Where the time goes: a warm Bloom pass (and the [T, k] gather
      kernel's time per launch in it), a Bloom sketch build, warm k-Hash
      and 1-Hash-naive passes, the scale-21 4-clique pass, the exact
@@ -255,6 +272,8 @@ import time
 from pathlib import Path
 
 SRC = Path(__file__).resolve().parent / "src"
+#: when this process started importing (phase 3l's subprocess reports it)
+T_IMPORT = time.perf_counter()
 
 #: Kronecker scale of the main path: 2^21 vertices, ~31.8M edges
 SCALE = 21
@@ -340,6 +359,17 @@ SSM_LAYER_TOL, SSM_LAYER_MEAN_TOL = 2.0 ** -5, 2.0 ** -7
 #: not fit on one card) and steps
 TRAIN_ARCH, TRAIN_SEQ, TRAIN_STEPS = "qwen3_8b", 4096, 5
 ADAMW_LAYERS, ADAMW_STEPS = 8, 4
+
+#: phase 3l: the dry-run cells on the 16×16 production mesh (arch, shape,
+#: optimization profile), traced in parallel subprocesses; the local
+#: shard's cell and steps (the first is warm-up, the last profiled)
+DRYRUN_CELLS = (("qwen3_8b", "train_4k", False),
+                ("qwen3_8b", "decode_32k", False),
+                ("deepseek_v3", "train_4k", True))
+SHARD_ARCH, SHARD_SHAPE, SHARD_STEPS = "qwen3_8b", "train_4k", 4
+#: phase 3l: the required useful share of the qwen3_8b train_4k cell's
+#: counted flops (model_flops + attention_flops over them)
+USEFUL_RANGE = (0.5, 1.05)
 
 #: why a row's ``library_ms`` is null: no single PyTorch call computes it
 NO_LIBRARY = {
@@ -4406,6 +4436,247 @@ def phase_train(torch, np, kernels, ref) -> dict:
     return out
 
 
+def local_shard_main(out_path: str) -> None:
+    """Phase 3l's subprocess (``chip_smoke.py --local-shard OUT``), on its
+    own so that its fake group meets no other: on rank 0 of a fake 16×16
+    group, the flash kernel under ``local_map`` against its plain version,
+    then ``SHARD_ARCH`` at full width and depth, ``SHARD_SHAPE``'s local
+    shard for real (``launch.dryrun.run_local_shard``). Writes a JSON
+    object to OUT."""
+    import torch
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import fake_group, make_production_mesh
+    from repro_torch import configs
+    from repro_torch.models import SHAPES
+    from repro_torch.models.layers import AttentionCore
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.profiler import ProfilerActivity, profile
+
+    stages = {"import": time.perf_counter() - T_IMPORT}
+    t0 = time.perf_counter()
+    _build.build()
+    stages["build"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg = configs.get(SHARD_ARCH)
+    shape = SHAPES[SHARD_SHAPE]
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    # the kernel under local_map: each rank's 2 query heads and the kv head
+    # they read, against the plain version on the same local tensors
+    with fake_group(256):
+        mesh = make_production_mesh(device="cuda")
+        b_loc = shape.global_batch // mesh.size(0)
+        h_loc = cfg.num_heads // mesh.size(1)
+
+        def rand(*dims):
+            return torch.randn(dims, generator=gen, device="cuda",
+                               dtype=torch.bfloat16)
+
+        ql = rand(b_loc, shape.seq_len, h_loc, cfg.head_dim)
+        kl = rand(b_loc, shape.seq_len, cfg.num_kv_heads, cfg.head_dim)
+        vl = rand(b_loc, shape.seq_len, cfg.num_kv_heads, cfg.head_dim)
+        q = DTensor.from_local(ql, mesh, [Shard(0), Shard(2)],
+                               run_check=False)
+        k = DTensor.from_local(kl, mesh, [Shard(0), Replicate()],
+                               run_check=False)
+        v = DTensor.from_local(vl, mesh, [Shard(0), Replicate()],
+                               run_check=False)
+        fa.reset_launch_counts()
+        with SH.use_rules(mesh), torch.no_grad():
+            out = AttentionCore(0)(q, k, v)
+        torch.cuda.synchronize()
+        core_launches = dict(fa.ROUTE_LAUNCHES)
+        g = cfg.num_heads // cfg.num_kv_heads
+        kv = slice(0, max(1, h_loc // g))    # rank 0's heads read kv 0
+        want = ref.causal_attention(ql, kl[:, :, kv], vl[:, :, kv], 0)
+        got = out.to_local()
+        err = float((got.float() - want.float()).abs().max())
+        tol = attn_tol(vl, "bfloat16")
+        close = bool(torch.allclose(got.float(), want.float(), **tol))
+        mean_err = float((got.float() - want.float()).abs().mean())
+        del q, k, v, ql, kl, vl, out, want, got
+    torch.cuda.empty_cache()
+    stages["local_map check"] = time.perf_counter() - t0
+
+    # the local shard: SHARD_STEPS train steps, the last one profiled
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    launches = []
+
+    def on_step(i):
+        launches.append(sum(fa.ROUTE_LAUNCHES.values()))
+        if i == SHARD_STEPS - 2:
+            prof.start()
+        elif i == SHARD_STEPS - 1:
+            torch.cuda.synchronize()
+            prof.stop()
+
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = DR.run_local_shard(cfg, shape, steps=SHARD_STEPS,
+                             optimizer=DR.make_optimizer(SHARD_ARCH),
+                             device="cuda", on_step=on_step)
+    run_s = time.perf_counter() - t0
+    from torch.autograd import DeviceType
+
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e6
+    top = [(e.key[:80], e.self_device_time_total / 1e3, e.count)
+           for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:6]]
+    with open(out_path, "w") as f:
+        json.dump({"core": {"max_abs_err": err, "mean_abs_err": mean_err,
+                            "close": close, "launches": core_launches,
+                            "local_heads": h_loc, "local_batch": b_loc,
+                            "seq": shape.seq_len},
+                   "step_s": res["step_s"], "peak_bytes": res["peak_bytes"],
+                   "local_batch": res["local_batch"], "launches": launches,
+                   "routes": dict(fa.ROUTE_LAUNCHES), "busy_s": busy,
+                   "kernel_launches": sum(e.count for e in kern),
+                   "top": top, "run_s": run_s, "stages": stages}, f)
+
+
+def phase_dryrun() -> dict:
+    """Phase 3l: production sharding and the dry run, in subprocesses: the
+    local shard on the card (``local_shard_main``) alone, so that no other
+    process loads the host while its steps are timed; then the
+    DRYRUN_CELLS through ``python -m repro_torch.launch.dryrun`` (fake
+    16×16 group, fake CUDA tensors; host work only), one process each,
+    side by side."""
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            shard = _local_shard(tmp, env)
+            for arch, shape_name, opt in DRYRUN_CELLS:
+                log = open(Path(tmp) / f"{arch}__{shape_name}.log", "w+")
+                cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                       "--arch", arch, "--shape", shape_name, "--mesh",
+                       "single", "--device", "cuda", "--tag", "smoke"] \
+                    + (["--opt"] if opt else [])
+                procs.append(((arch, shape_name), log, subprocess.Popen(
+                    cmd, env=env, stdout=log, stderr=subprocess.STDOUT)))
+            return _dryrun_results(shard, procs, t_phase)
+        finally:
+            for _, log, p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+                log.close()
+
+
+def _local_shard(tmp: str, env: dict) -> dict:
+    """Phase 3l's local shard, in its own process with no other running:
+    printed, checked, returned."""
+    out = Path(tmp) / "shard.json"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--local-shard", str(out)], env=env,
+                          capture_output=True, text=True, timeout=600)
+    shard_s = time.perf_counter() - t0
+    require(proc.returncode == 0 and out.exists(),
+            f"local shard: exit {proc.returncode}\n"
+            f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    shard = json.loads(out.read_text())
+    core = shard["core"]
+    require(core["close"] and core["mean_abs_err"] <= ATTN_BF16_MEAN
+            and core["launches"] == {"wgmma_bf16": 1, "fma_fp32": 0},
+            f"flash under local_map: {core}")
+    print(f"phase 3l: flash kernel under local_map on rank 0 of a fake "
+          f"16x16 group ({core['local_heads']} local query heads of "
+          f"{SHARD_ARCH}, the kv head they read, local batch "
+          f"{core['local_batch']}, S={core['seq']}, bf16) against "
+          f"the plain version on the same local q, k, v: max |err| "
+          f"{core['max_abs_err']:.3g}, mean {core['mean_abs_err']:.3g}; "
+          f"launches {core['launches']}", flush=True)
+
+    from repro_torch import configs
+
+    per_step = [b - a for a, b in zip([0] + shard["launches"],
+                                      shard["launches"])]
+    layers = configs.get(SHARD_ARCH).num_layers
+    steps = shard["step_s"]
+    step_s = sorted(steps[1:-1])[len(steps[1:-1]) // 2]
+    idle = max(0.0, 1 - shard["busy_s"] / step_s)
+    top = "\n".join(f"    {ms:9.3f} ms {n:6d}x {key}"
+                     for key, ms, n in shard["top"])
+    print(f"  local shard: {SHARD_ARCH} {SHARD_SHAPE} at full width and "
+          f"depth, rank 0 of a fake 16x16 group (its collectives are "
+          f"no-ops: the time excludes communication, and the loss is not a "
+          f"result; no other process ran beside it), local batch "
+          f"{shard['local_batch']}, bf16, "
+          f"remat, AdamW keep_master: step times (events) "
+          f"{[round(x, 4) for x in steps]} s, median of steps 2-"
+          f"{SHARD_STEPS - 1} {step_s:.4f} s; peak memory "
+          f"{shard['peak_bytes']} bytes; flash launches {per_step} by step "
+          f"({shard['routes']}); profiled last step: device busy "
+          f"{shard['busy_s'] * 1e3:.1f} ms, idle share {idle:.1%}, "
+          f"{shard['kernel_launches']} kernel launches; "
+          f"{shard['run_s']:.1f} s with init (before it: "
+          f"{ {k: round(v, 1) for k, v in shard['stages'].items()} } s); "
+          f"subprocess {shard_s:.1f} s; top kernels:\n{top}",
+          flush=True)
+    require(per_step == [2 * layers] * SHARD_STEPS
+            and shard["routes"]["fma_fp32"] == 0,
+            f"local shard launches {shard['launches']}, {shard['routes']}")
+
+    return dict(shard, step_s_median=step_s, idle=idle)
+
+
+def _dryrun_results(shard: dict, procs: list, t_phase: float) -> dict:
+    """Phase 3l's dry-run cells ``procs``: their results, printed and
+    checked beside the local shard's."""
+    failed, cells = [], {}
+    for (arch, shape_name), log, p in procs:
+        p.wait(timeout=900)
+        if p.returncode != 0:
+            log.seek(0)
+            failed.append(f"dry run {arch} {shape_name}: exit "
+                          f"{p.returncode}\n{log.read()[-3000:]}")
+            continue
+        r = json.loads((SRC.parent / "experiments" / "dryrun_torch" / (
+            f"{arch}__{shape_name}__16x16__smoke.json")).read_text())
+        cells[(arch, shape_name)] = r
+        roof, st = r["roofline"], r["hlo_stats"]
+        links = {k: f"{v:.4g}" for k, v in st["collective_bytes"].items()}
+        print(f"  dry run {arch} {shape_name} 16x16"
+              f"{' (--opt)' if arch == 'deepseek_v3' else ''}: per device "
+              f"{st['flops']:.4g} flop, {st['bytes_proxy']:.4g} bytes "
+              f"(proxy), collective payload bytes {links} in "
+              f"{st['collective_ops']} ops, {st['collective_link_bytes']:.4g} "
+              f"link bytes; memory estimate "
+              f"{r['memory_analysis']['Total']} bytes "
+              f"({roof['per_device_memory_gb']:.2f} GiB); terms compute "
+              f"{roof['compute_s']:.4f} s, memory {roof['memory_s']:.4f} s, "
+              f"collective {roof['collective_s']:.4f} s; bottleneck "
+              f"{roof['bottleneck']}; useful_ratio "
+              f"{roof['useful_ratio']:.4f}; traced in {r['trace_s']} s "
+              f"({time.perf_counter() - t_phase:.1f} s into the phase)",
+              flush=True)
+    require(not failed, "\n".join(failed))
+    qwen = cells[("qwen3_8b", "train_4k")]
+    lo, hi = USEFUL_RANGE
+    require(lo < qwen["roofline"]["useful_ratio"] <= hi,
+            f"qwen3_8b train_4k useful_ratio "
+            f"{qwen['roofline']['useful_ratio']}")
+    estimate = qwen["memory_analysis"]["Total"]
+    out = dict(local_launches=shard["routes"]["wgmma_bf16"],
+               step_s=shard["step_s_median"], peak=shard["peak_bytes"],
+               estimate=estimate, idle=shard["idle"],
+               useful=qwen["roofline"]["useful_ratio"], cells=cells,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"  local shard peak memory {shard['peak_bytes']} bytes against "
+          f"the dry run's estimate for the same cell {estimate} bytes "
+          f"({shard['peak_bytes'] / estimate:.3f}x)", flush=True)
+    print(f"phase 3l: {out['phase_s']:.1f} s in all ({smi_line()})",
+          flush=True)
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         raise SystemExit(f"no port sources under {SRC}: run chip_smoke.py "
@@ -4492,6 +4763,7 @@ def main() -> None:
     timing["flash_attention_wgmma"]["model_ms"] = model["attn_ms"]
     archs = phase_archs(torch, np, kernels, ref)
     training = phase_train(torch, np, kernels, ref)
+    dry = phase_dryrun()
     g12, exact = phase_reference(torch, np, TE, TG, sketches)
     phase_reference_exact(torch, np, TE, g12, exact)
     phase_reference_minhash(torch, np, TE, g12, exact)
@@ -4550,6 +4822,10 @@ def main() -> None:
           f"launches a step, peak {training['full_peak']} bytes; AdamW "
           f"{ADAMW_LAYERS} layers {training['adamw_s']:.4f} s, peak "
           f"{training['adamw_peak']} bytes; {training['phase_s']:.1f} s"
+          + f"; phase 3l {SHARD_ARCH} local shard step "
+          f"{dry['step_s']:.4f} s, peak {dry['peak']} bytes (estimate "
+          f"{dry['estimate']}), useful_ratio {dry['useful']:.4f}, "
+          f"{dry['phase_s']:.1f} s"
           + f"; total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # each row: the kernel's launches on the paths that run it, each path
@@ -4664,6 +4940,9 @@ def main() -> None:
     # the gradient cells and the card-vs-CPU steps compare and do not count
     train_rows = {"flash_attention_wgmma": training["bf16_launches"],
                   "flash_attention": training["fp32_launches"]}
+    # phase 3l: the local shard's train steps (bf16); the kernel-vs-plain
+    # launch under local_map compares and does not count
+    dryrun_rows = {"flash_attention_wgmma": dry["local_launches"]}
     cell = training["grad_cells"][TRAIN_ARCH]
     timing["flash_attention_wgmma"].update(
         train_fwd_bwd_ms=cell["ms"], train_bwd_ms=cell["bwd_ms"],
@@ -4674,7 +4953,7 @@ def main() -> None:
     rows = [(name, source, replaces, launches + stream_rows.get(name, 0)
              + adaptive_rows.get(name, 0) + linkpred_rows.get(name, 0)
              + sharded_rows.get(name, 0) + model_rows.get(name, 0)
-             + train_rows.get(name, 0))
+             + train_rows.get(name, 0) + dryrun_rows.get(name, 0))
             for name, source, replaces, launches in rows]
     records = [{
         "name": name, "route": "cuda", "source": source,
@@ -4691,6 +4970,8 @@ def main() -> None:
            if name in model_rows else {}),
         **({"train_launches": train_rows[name]}
            if name in train_rows else {}),
+        **({"dryrun_launches": dryrun_rows[name]}
+           if name in dryrun_rows else {}),
         "max_abs_err": timing[name]["max_abs_err"],
         "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
         "bound_ms": timing[name]["bound_ms"],
@@ -4714,4 +4995,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--local-shard":
+        local_shard_main(sys.argv[2])
+        raise SystemExit(0)
     main()

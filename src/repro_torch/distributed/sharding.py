@@ -13,8 +13,13 @@ or any object whose ``shape`` maps dim names to sizes (enough to compute
 specs without a process group).
 
 ``use_rules(mesh)`` installs the mesh and rules that the engine's edge
-fold reads (``shard_edges=True``). ``shard_as``, which constrains model
-activations, comes with the port of the models.
+fold (``shard_edges=True``) and the models read. ``shard_as(x, *axes)``
+is the counterpart of ``with_sharding_constraint``: under a mesh, a
+DTensor is redistributed to the placements of its axes' spec; a plain
+tensor, or any tensor without a mesh, comes back as it is. The model
+runs under a mesh as DTensor ops (the counterpart of GSPMD), with
+plain tensors it creates itself (positions, masks) treated as replicated
+(``implicit_replication``, see :func:`model_context`).
 """
 from __future__ import annotations
 
@@ -98,6 +103,27 @@ def use_rules(mesh, overrides: Optional[Dict[str, Axis]] = None):
         yield
     finally:
         _CTX.mesh, _CTX.rules = prev_mesh, prev_rules
+
+
+def same_rules():
+    """A context that installs the mesh and rules active now, and
+    :func:`model_context` under them. Autograd runs a CUDA backward on a
+    thread of its own, where this module's per-thread context is empty;
+    a layer recomputed there (remat) must see the forward's rules
+    (``torch.utils.checkpoint``'s ``context_fn``)."""
+    mesh, rules = _CTX.mesh, _CTX.rules
+
+    @contextlib.contextmanager
+    def ctx():
+        prev = _CTX.mesh, _CTX.rules
+        _CTX.mesh, _CTX.rules = mesh, rules
+        try:
+            with model_context():
+                yield
+        finally:
+            _CTX.mesh, _CTX.rules = prev
+
+    return ctx()
 
 
 def _filter_axes(sizes: Dict[str, int], phys: Axis, dim_size: int,
@@ -194,6 +220,128 @@ class NamedSharding:
             for i in order:
                 out[i] = Shard(dim)
         return out
+
+
+def shard_as(x, *logical_axes: Optional[str]):
+    """Constrain a DTensor's layout to its logical axes' spec under the
+    active mesh (a redistribute, which is a no-op when it already lies
+    so); ``x`` itself without an active mesh or when it is a plain
+    tensor."""
+    mesh = _CTX.mesh
+    if mesh is None or not is_dtensor(x):
+        return x
+    sh = NamedSharding(x.device_mesh, spec_for(logical_axes,
+                                               dim_sizes=tuple(x.shape),
+                                               mesh=x.device_mesh))
+    placements = sh.placements
+    if tuple(x.placements) == tuple(placements):
+        return x
+    return x.redistribute(x.device_mesh, placements)
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (a tensor laid out over a mesh)."""
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def gathered(w):
+    """A weight as a product reads it: a DTensor split over the data dims
+    ("pod", "data"; ZeRO-3 at rest) all-gathered over them, its split over
+    "model" kept (the GSPMD gather of an FSDP weight; its gradient is
+    reduce-scattered back). Anything else comes back as it is."""
+    return replicated_over(w, "pod", "data")
+
+
+def replicated_over(x, *dims: str):
+    """A DTensor replicated over the mesh dims ``dims`` (all-gathered
+    where it is split there); ``x`` itself when it is a plain tensor."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    names = x.device_mesh.mesh_dim_names
+    placements = [Replicate() if n in dims else pl
+                  for n, pl in zip(names, x.placements)]
+    if placements == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, placements)
+
+
+def shard_dims(x, dim: int) -> list:
+    """The mesh dims (indices) over which DTensor ``x`` splits its tensor
+    dim ``dim``."""
+    from torch.distributed.tensor import Shard
+
+    return [i for i, pl in enumerate(x.placements) if pl == Shard(dim)]
+
+
+def layout(mesh, **by_index) -> list:
+    """Placements, one per mesh dim: ``by_index`` maps a placement to the
+    mesh dims (indices) it holds on, Replicate elsewhere; e.g.
+    ``layout(mesh, shard0=[0], partial=[1])``. Keys: ``shard<d>`` (Shard
+    of tensor dim d) and ``partial``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    out = [Replicate()] * mesh.ndim
+    for key, dims in by_index.items():
+        pl = Partial() if key == "partial" else Shard(int(key[5:]))
+        for i in dims:
+            out[i] = pl
+    return out
+
+
+def partial_over(placements, dims) -> list:
+    """``placements`` with ``Partial`` on the mesh dims ``dims``: the
+    gradient layout of an input whose ranks along them use it for other
+    tokens (or heads, or experts), so that each rank's gradient is a
+    part of the sum."""
+    from torch.distributed.tensor import Partial
+
+    out = list(placements)
+    for i in dims:
+        out[i] = Partial()
+    return out
+
+
+def run_local(fn, mesh, args, in_placements, out_placements,
+              grad_placements=None):
+    """``fn`` on each rank's local shards of ``args`` (redistributed to
+    ``in_placements`` first), its output the DTensor of
+    ``out_placements`` (``local_map``). ``grad_placements`` are the
+    inputs' gradient layouts: an input replicated over a mesh dim whose
+    ranks use it differently (other tokens, other heads) gets a partial
+    gradient there, which must be declared ``Partial``."""
+    from torch.distributed.tensor.experimental import local_map
+
+    return local_map(fn, out_placements=out_placements,
+                     in_placements=tuple(in_placements),
+                     in_grad_placements=(tuple(grad_placements)
+                                         if grad_placements else None),
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+def model_context():
+    """The context a model step runs in: under an active mesh DTensor's
+    ``implicit_replication`` (a plain tensor the model makes, such as a
+    position or a mask, is replicated on every rank, so it may meet a
+    DTensor); nothing otherwise."""
+    if _CTX.mesh is None:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()
+
+
+def distribute(x, sharding: "NamedSharding"):
+    """A tensor that every rank holds whole, as a DTensor laid out by
+    ``sharding``: each rank keeps its own shard, with no communication
+    (``src_data_rank=None``)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(x, sharding.mesh, sharding.placements,
+                             src_data_rank=None)
 
 
 def _is_axes_leaf(x) -> bool:

@@ -205,6 +205,21 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return tuple(g.to(x.dtype) for g, x in zip(grads, (q, k, v)))
 
 
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       window: int) -> torch.Tensor:
+    """The standard layout's forward as a PyTorch op: the kernel on CUDA
+    tensors, the plain version on CPU tensors. Being an op, it has a fake
+    (shape-only) version, so a ``FakeTensorMode`` trace (the dry run) sees
+    it without launching it, and the cost counter counts its flops."""
+    return _forward(q, k, v, window)
+
+
+@flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, window):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """:func:`flash_attention` with a gradient: the forward launches the
     kernel (plain version on the CPU) and saves only q, k and v; the
@@ -214,7 +229,7 @@ class FlashAttentionFn(torch.autograd.Function):
     def forward(ctx, q, k, v, window: int):
         ctx.window = window
         ctx.save_for_backward(q, k, v)
-        return _forward(q, k, v, window)
+        return flash_attention_op(q, k, v, window)
 
     @staticmethod
     def backward(ctx, dout):
@@ -282,10 +297,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"KV={kvh}]: batches must match and H divide by KV")
     if _needs_grad(q, k, v):
         return FlashAttentionFn.apply(q, k, v, int(window))
-    return _forward(q, k, v, int(window))
+    return flash_attention_op(q, k, v, int(window))
 
 
 __all__ = ["BACKWARD_ROWS", "FlashAttentionFn", "LAUNCHES", "MAX_HEAD_DIM",
+           "flash_attention_op",
            "ROUTE_LAUNCHES", "attention_backward", "flash_attention",
            "flash_attention_folded", "reset_launch_counts", "tma_operand",
            "tma_ready"]

@@ -12,9 +12,17 @@ config on the GPU:
 runs on the CUDA device (``--device cpu`` runs the plain PyTorch path).
 The step is eager; its attention runs forward through the flash kernel
 and backward through the plain recompute
-(``kernels.flash_attention.FlashAttentionFn``). A mesh other than
-``(1, 1)`` waits for the production sharding (ROADMAP Queue 1, item 4).
-Checkpoints hold bfloat16 parameters as float32 (``checkpoint_tree``).
+(``kernels.flash_attention.FlashAttentionFn``). Checkpoints hold bfloat16
+parameters as float32 (``checkpoint_tree``).
+
+A ``mesh_shape`` (data, model) other than (1, 1) trains over data ·
+model ranks of a process group, one call of :func:`train` on each
+(``--mesh 2,2`` spawns them: gloo on the CPU, NCCL with one rank per
+GPU): every rank makes the same state and batch from the seed, keeps
+its shards (``distribute_state`` by ``train_state_shardings``) and runs
+the step under ``use_rules(mesh)``. A checkpoint holds whole tensors
+(rank 0 writes it), so a run restores under any mesh: the reference's
+elastic resharding, through ``restore_checkpoint(shardings=)``.
 """
 from __future__ import annotations
 
@@ -33,9 +41,11 @@ from repro_torch.checkpoint import (AsyncCheckpointer, latest_step,
 from repro_torch.data import SyntheticLMData
 from repro_torch.distributed.fault import (FaultInjector, StepMonitor,
                                            run_with_recovery)
+from repro_torch.distributed import sharding as SH
 from repro_torch.distributed.step import (
-    checkpoint_tree, init_train_state, make_train_step, train_state_from_tree,
-    train_state_shapes)
+    checkpoint_tree, distribute_state, init_train_state, make_train_step,
+    restore_shardings, train_state_from_tree, train_state_shapes,
+    train_state_shardings)
 from repro_torch.models import reduced
 from repro_torch.optim import AdamW, Adafactor, cosine_warmup
 
@@ -90,62 +100,107 @@ def train(run: TrainRunConfig, fault: Optional[FaultInjector] = None,
     a failed step restarts from the latest checkpoint. ``on_metrics(step,
     metrics)`` sees each step's ``loss`` and ``grad_norm`` tensors."""
     dev = resolve_device(device)
-    if tuple(run.mesh_shape) != (1, 1):
-        raise NotImplementedError(
-            f"mesh_shape {tuple(run.mesh_shape)}: training over a mesh is "
-            "not ported yet; it waits for ROADMAP Queue 1, item 4 "
-            "(production sharding)")
     cfg, opt, data = build(run)
+    mesh, shardings = None, None
+    if tuple(run.mesh_shape) != (1, 1):
+        from repro_torch.launch.mesh import make_host_mesh
+
+        mesh = make_host_mesh(*run.mesh_shape, device=dev)
+        shardings = train_state_shardings(cfg, opt, mesh,
+                                          compress_grads=run.compress_grads)
+    rank0 = mesh is None or torch.distributed.get_rank() == 0
     step_fn = make_train_step(cfg, opt, compress_grads=run.compress_grads)
-    ckpt = AsyncCheckpointer(run.ckpt_dir, keep=run.keep) if run.ckpt_dir \
-        else None
+    ckpt = AsyncCheckpointer(run.ckpt_dir, keep=run.keep) \
+        if run.ckpt_dir and rank0 else None
     monitor = StepMonitor()
     history: List[Dict[str, Any]] = []
     state_box: Dict[str, Any] = {"state": None}
 
     def restore_point() -> int:
         state_box["state"] = None            # free the failed state first
-        if ckpt is None or latest_step(run.ckpt_dir) is None:
-            state_box["state"] = init_train_state(
-                cfg, opt, run.seed, compress_grads=run.compress_grads,
-                device=dev)
+        if not run.ckpt_dir or latest_step(run.ckpt_dir) is None:
+            state = init_train_state(cfg, opt, run.seed,
+                                     compress_grads=run.compress_grads,
+                                     device=dev)
+            state_box["state"] = (state if mesh is None
+                                  else distribute_state(state, shardings))
             return 0
         step = latest_step(run.ckpt_dir)
         target = train_state_shapes(cfg, opt, run.compress_grads)
-        state_box["state"] = train_state_from_tree(
-            cfg, restore_checkpoint(run.ckpt_dir, step, target, device=dev))
+        tree = restore_checkpoint(
+            run.ckpt_dir, step, target, device=dev,
+            shardings=None if mesh is None
+            else restore_shardings(shardings, target))
+        state_box["state"] = train_state_from_tree(cfg, tree)
         log.info("restored checkpoint at step %d", step)
         return step
 
+    def save(step: int, state) -> None:
+        tree = checkpoint_tree(state)       # every rank: it gathers shards
+        if ckpt is not None:
+            ckpt.save(step, tree)
+
     def loop(start: int) -> int:
         state = state_box["state"]
-        for step in range(start, run.steps):
-            if fault is not None:
-                fault.maybe_fail(step)
-            t0 = time.perf_counter()
-            batch = {k: torch.from_numpy(v).to(dev) for k, v in
-                     data.batch(step, run.global_batch).items()}
-            state, metrics = step_fn(state, batch)
-            loss = float(metrics["loss"])
-            monitor.record(step, time.perf_counter() - t0)
-            history.append({"step": step, "loss": loss})
-            if on_metrics:
-                on_metrics(step, metrics)
-            if ckpt is not None and (step + 1) % run.ckpt_every == 0:
-                ckpt.save(step + 1, checkpoint_tree(state))
-            state_box["state"] = state
-        if ckpt is not None:
-            ckpt.wait()
-            ckpt.save(run.steps, checkpoint_tree(state_box["state"]))
-            ckpt.wait()
+        with SH.use_rules(mesh):
+            for step in range(start, run.steps):
+                if fault is not None:
+                    fault.maybe_fail(step)
+                t0 = time.perf_counter()
+                batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                         data.batch(step, run.global_batch).items()}
+                if mesh is not None:
+                    bsh = batch_layout(cfg, batch, mesh)
+                    batch = {k: SH.distribute(v, bsh[k])
+                             for k, v in batch.items()}
+                state, metrics = step_fn(state, batch)
+                loss = float(metrics["loss"])
+                monitor.record(step, time.perf_counter() - t0)
+                history.append({"step": step, "loss": loss})
+                if on_metrics:
+                    on_metrics(step, metrics)
+                if run.ckpt_dir and (step + 1) % run.ckpt_every == 0:
+                    save(step + 1, state)
+                state_box["state"] = state
+        if run.ckpt_dir:
+            if ckpt is not None:
+                ckpt.wait()
+            save(run.steps, state_box["state"])
+            if ckpt is not None:
+                ckpt.wait()
+            if mesh is not None:
+                torch.distributed.barrier()
         return run.steps
 
-    if ckpt is not None:
+    if run.ckpt_dir:
         run_with_recovery(loop, restore_step=restore_point, max_restarts=5)
     else:
         restore_point()
         loop(0)
     return state_box["state"], history
+
+
+def batch_layout(cfg, batch: Dict[str, torch.Tensor], mesh):
+    """The batch's shardings for its own shape (``batch_shardings``)."""
+    from repro_torch.distributed.step import batch_shardings
+    from repro_torch.models import ShapeConfig
+
+    b, s = batch["labels"].shape
+    return batch_shardings(cfg, ShapeConfig("batch", s, b, "train"), mesh)
+
+
+def train_rank(run: TrainRunConfig, device: DeviceLike = DEFAULT_DEVICE):
+    """One rank of a mesh run (the entry :func:`main` spawns): its
+    history, and its parameters' placements and gathered values by
+    name."""
+    state, history = train(run, device=device)
+    params = {}
+    for name, p in state["params"].named_parameters():
+        full = p.full_tensor() if SH.is_dtensor(p) else p
+        params[name] = (tuple(str(pl) for pl in getattr(p, "placements",
+                                                         ())),
+                        full.detach().cpu())
+    return {"history": history, "params": params}
 
 
 def main(argv: Optional[List[str]] = None):
@@ -164,6 +219,8 @@ def main(argv: Optional[List[str]] = None):
                     help="use the full-width config (bfloat16, on the GPU)")
     ap.add_argument("--device", default=DEFAULT_DEVICE,
                     help="cuda (default) or cpu (the plain PyTorch path)")
+    ap.add_argument("--mesh", default="1,1",
+                    help="data,model: train over data·model spawned ranks")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     dev = resolve_device(args.device)
@@ -173,9 +230,17 @@ def main(argv: Optional[List[str]] = None):
                          ckpt_dir=args.ckpt_dir, d_model=args.d_model,
                          layers=args.layers,
                          compress_grads=args.compress_grads,
-                         optimizer=args.optimizer)
+                         optimizer=args.optimizer,
+                         mesh_shape=tuple(int(n) for n in
+                                          args.mesh.split(",")))
     t0 = time.perf_counter()
-    _, history = train(run, device=dev)
+    if run.mesh_shape != (1, 1):
+        from repro_torch.distributed.spawn import spawn
+
+        history = spawn(train_rank, run.mesh_shape[0] * run.mesh_shape[1],
+                        args=(run, dev.type), device=dev)[0]["history"]
+    else:
+        _, history = train(run, device=dev)
     print(f"first loss {history[0]['loss']:.4f} -> final "
           f"{history[-1]['loss']:.4f} in {time.perf_counter() - t0:.1f}s "
           f"on {dev}")

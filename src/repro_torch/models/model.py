@@ -16,13 +16,22 @@ state (``distributed.step.init_train_state``) turns it on. ``loss_fn`` is
 the reference's train loss; with ``cfg.remat`` and grad on, each layer's
 activations are recomputed in the backward
 (``torch.utils.checkpoint``), as the reference checkpoints its scan body.
+
+``params_logical_axes`` and ``cache_logical_axes`` give every parameter
+(by its ``named_parameters()`` name) and cache tensor its logical axes:
+the reference's per-layer tuples without the "layers" axis of its
+stacked leaves. Laid out by them as DTensors, the same functions run
+over a mesh (``shard_as`` at the reference's points, the vocab lookup,
+the LM head and the gold logit as per-rank blocks over vocab slices).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -125,29 +134,96 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         h = L.rms_norm(x, self.ln1, self.cfg.norm_eps)
-        x = x + (self.mixer(h) if self.sig[0] == "ssm"
-                 else self.mixer(h, positions))
-        return _apply_ffn(self, x)
+        h = self.mixer(h) if self.sig[0] == "ssm" else self.mixer(h, positions)
+        x = x + SH.shard_as(h, "batch", "seq", "embed_act")
+        return SH.shard_as(_apply_ffn(self, x), "batch", "seq", "embed_act")
 
 
 def _apply_ffn(p: DecoderLayer, x: torch.Tensor) -> torch.Tensor:
     if p.sig[1] == "none":
         return x
     h = L.rms_norm(x, p.ln2, p.cfg.norm_eps)
-    return x + (_moe(p.ffn, h, p.cfg) if p.sig[1] == "moe" else p.ffn(h))
+    h = _moe(p.ffn, h, p.cfg) if p.sig[1] == "moe" else p.ffn(h)
+    return x + SH.shard_as(h, "batch", "seq", "embed_act")
+
+
+def _sublayer_axes(cfg: ModelConfig, sig: LayerSig) -> Dict[str, tuple]:
+    """The logical axes of one layer's parameters by their names in
+    :class:`DecoderLayer`: the reference's per-slot axes without the
+    leading "layers" axis of its stacked leaves."""
+    mixer, ffn = sig
+    ax: Dict[str, tuple] = {"ln1": ("embed",)}
+    if mixer == "attn":
+        ax.update({
+            "mixer.wq": ("embed_fsdp", "heads", "head_dim_tp"),
+            "mixer.wk": ("embed_fsdp", "kv_heads", "head_dim_tp"),
+            "mixer.wv": ("embed_fsdp", "kv_heads", "head_dim_tp"),
+            "mixer.wo": ("heads", "head_dim_tp", "embed_fsdp"),
+        })
+        if cfg.qk_norm:
+            ax["mixer.q_norm"] = ("head_dim",)
+            ax["mixer.k_norm"] = ("head_dim",)
+    elif mixer == "mla":
+        ax.update({
+            "mixer.wdq": ("embed_fsdp", "q_lora"),
+            "mixer.q_norm": ("q_lora",),
+            "mixer.wuq": ("q_lora", "heads", None),
+            "mixer.wdkv": ("embed_fsdp", "kv_lora"),
+            "mixer.kv_norm": ("kv_lora",),
+            "mixer.wuk": ("kv_lora", "heads", None),
+            "mixer.wuv": ("kv_lora", "heads", None),
+            "mixer.wo": ("heads", None, "embed_fsdp"),
+        })
+    else:
+        ax.update({
+            "mixer.z_proj": ("embed_fsdp", "ssm_inner"),
+            "mixer.x_proj": ("embed_fsdp", "ssm_inner"),
+            "mixer.bc_proj": ("embed_fsdp", None),
+            "mixer.dt_proj": ("embed_fsdp", None),
+            "mixer.conv_wx": ("conv", "ssm_inner"),
+            "mixer.conv_bx": ("ssm_inner",),
+            "mixer.conv_wbc": ("conv", None), "mixer.conv_bbc": (None,),
+            "mixer.a_log": (None,), "mixer.d_skip": (None,),
+            "mixer.dt_bias": (None,), "mixer.norm": ("ssm_inner",),
+            "mixer.out_proj": ("ssm_inner", "embed_fsdp"),
+        })
+    if ffn != "none":
+        ax["ln2"] = ("embed",)
+        mlp = {"wi_gate": ("embed_fsdp", "ff"), "wi_up": ("embed_fsdp", "ff"),
+               "wo": ("ff", "embed_fsdp")}
+        if ffn == "moe":
+            ax.update({"ffn.router": ("embed", None),
+                       "ffn.wi_gate": ("expert", "embed_fsdp", "ff"),
+                       "ffn.wi_up": ("expert", "embed_fsdp", "ff"),
+                       "ffn.wo": ("expert", "ff", "embed_fsdp")})
+            if cfg.moe_shared_experts:
+                ax.update({f"ffn.shared.{k}": v for k, v in mlp.items()})
+        else:
+            ax.update({f"ffn.{k}": v for k, v in mlp.items()})
+    return ax
+
+
+def _sublayer_cache_axes(cfg: ModelConfig, sig: LayerSig) -> Dict[str, tuple]:
+    """The logical axes of one layer's cache by its keys (the reference's
+    without the leading "layers" axis)."""
+    if sig[0] == "attn":
+        axes = ("batch", "decode_cache_seq", "kv_heads", None)
+        return {"k": axes, "v": axes}
+    if sig[0] == "mla":
+        return {"ckv": ("batch", "decode_cache_seq", None),
+                "krope": ("batch", "decode_cache_seq", None)}
+    return {"conv_x": ("batch", None, "ssm_inner"),
+            "conv_bc": ("batch", None, None),
+            "state": ("batch", None, None, None)}
 
 
 def _moe(p: L.MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The MoE layer. ``moe_impl="ep"`` (expert parallel) is the reference's
-    ``moe_fwd_ep``, which runs ``moe_fwd`` unless a mesh with a "model"
-    axis is active; the port does the same and raises under such a mesh."""
+    """The MoE layer: ``moe_impl="ep"`` (expert parallel) runs
+    :func:`.moe_ep.moe_fwd_ep`, which is ``moe_fwd`` unless a mesh with a
+    "model" dim that divides the experts is active."""
     if cfg.moe_impl == "ep":
-        mesh = SH.active_mesh()
-        if mesh is not None and "model" in SH.axis_sizes(mesh):
-            raise NotImplementedError(
-                "expert-parallel MoE (moe_impl='ep') under a mesh with a "
-                "'model' axis is not ported yet: it waits for ROADMAP "
-                "Queue 1, item 4 (production sharding)")
+        from .moe_ep import moe_fwd_ep
+        return moe_fwd_ep(p, x, cfg)
     return p(x)
 
 
@@ -163,7 +239,7 @@ def _decode_sublayer(cfg: ModelConfig, p: DecoderLayer,
         h = L.mla_decode(p.mixer, h, cache, cfg, pos)
     else:
         h = SSM.ssm_decode(p.mixer, h, cache, cfg)
-    return _apply_ffn(p, x + h)
+    return _apply_ffn(p, x + SH.shard_as(h, "batch", "seq", "embed_act"))
 
 
 def _init_sublayer_cache(cfg: ModelConfig, sig: LayerSig, batch: int,
@@ -218,39 +294,112 @@ def init_params(cfg: ModelConfig, key: Union[int, torch.Generator] = 0,
     return Model(cfg, gen, dev)
 
 
-def _embed(params: Model, cfg: ModelConfig, inputs: torch.Tensor):
+def params_logical_axes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """Every parameter's logical axes by its name in :class:`Model`
+    (``named_parameters()``); built from the config alone, so that a
+    full-size model's shardings need no tensor."""
+    ax: Dict[str, tuple] = {}
     if cfg.input_mode == "tokens":
-        return params.embed[inputs]
-    return inputs.to(L._dtype(cfg))
+        ax["embed"] = ("vocab", "embed")
+    for i, sig in enumerate(plan_sigs(cfg)):
+        ax.update({f"layers.{i}.{k}": v
+                   for k, v in _sublayer_axes(cfg, sig).items()})
+    ax["final_norm"] = ("embed",)
+    if not cfg.tie_embeddings:
+        ax["head"] = ("embed", "vocab")
+    return ax
+
+
+def cache_logical_axes(cfg: ModelConfig) -> Cache:
+    """The cache's logical axes in :func:`init_cache`'s layout."""
+    return {"layers": [_sublayer_cache_axes(cfg, sig)
+                       for sig in plan_sigs(cfg)],
+            "pos": ()}
+
+
+def _embed(params: Model, cfg: ModelConfig, inputs: torch.Tensor):
+    """Token embeddings (a lookup; over a vocab-sharded table a masked
+    partial sum) or the embeddings cast."""
+    if cfg.input_mode != "tokens":
+        return inputs.to(L._dtype(cfg))
+    if SH.is_dtensor(params.embed):
+        return _sharded_embed(params.embed, inputs)
+    return F.embedding(inputs, params.embed)
+
+
+def _sharded_embed(embed, ids):
+    """The lookup on DTensors: each rank looks its batch shard's ids up in
+    its vocab slice (zero rows for ids outside it); the rows are partial
+    over the mesh dims that split the vocab."""
+    mesh = embed.device_mesh
+    vdims = SH.shard_dims(embed, 0)
+    first = _slice_start(mesh, vdims)
+    batch = SH.shard_dims(ids, 0) if SH.is_dtensor(ids) else []
+
+    def local(idl, el):
+        rel = idl.long() - first * el.shape[0]
+        out = F.embedding(rel.clamp(0, el.shape[0] - 1), el)
+        return out.masked_fill(((rel < 0) | (rel >= el.shape[0]))[..., None],
+                               0)
+
+    id_pl = SH.layout(mesh, shard0=batch)
+    table = SH.gathered(embed)
+    return SH.run_local(local, mesh, (ids, table), (id_pl, table.placements),
+                        SH.layout(mesh, shard0=batch, partial=vdims),
+                        (id_pl, SH.partial_over(table.placements, batch)))
 
 
 def forward(params: Model, cfg: ModelConfig, inputs: torch.Tensor,
             positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """inputs: int tokens [B, S] or embeddings [B, S, d]. Returns logits
     [B, S, padded vocab], the pad region -1e30."""
-    x = _embed(params, cfg, inputs)
+    x = SH.shard_as(_embed(params, cfg, inputs), "batch", "seq", "embed_act")
     b, s = x.shape[0], x.shape[1]
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
     remat = cfg.remat and torch.is_grad_enabled()
     for layer in params.layers:
-        x = (checkpoint(layer, x, positions, use_reentrant=False) if remat
+        x = (checkpoint(layer, x, positions, use_reentrant=False,
+                        context_fn=_remat_contexts) if remat
              else layer(x, positions))
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     return _lm_head(params, cfg, x)
 
 
+def _remat_contexts():
+    """Remat's contexts: none for the forward; for the recompute, which a
+    CUDA backward runs on autograd's own thread, the forward's sharding
+    rules."""
+    return contextlib.nullcontext(), SH.same_rules()
+
+
 def _lm_head(params: Model, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Logits over the padded vocab; the pad region set to -1e30 in place
     (safe under autograd: the product's backward does not read its
-    output)."""
-    if cfg.tie_embeddings:
-        logits = x @ params.embed.t()
+    output). On DTensors each rank's batch shard against its vocab slice
+    (:func:`.layers._sharded_matmul`), the pad region masked by each rank
+    in its slice."""
+    w = params.embed.t() if cfg.tie_embeddings else params.head
+    if SH.is_dtensor(w):
+        first = _slice_start(w.device_mesh, SH.shard_dims(w, 1))
+
+        def local(xl, wl):
+            return _masked_logits(xl @ wl, cfg, first * wl.shape[-1])
+
+        logits = L._sharded_matmul(x, w, local)
     else:
-        logits = x @ params.head
-    if cfg.padded_vocab != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = L.NEG_INF
+        logits = _masked_logits(x @ w, cfg, 0)
+    return SH.shard_as(logits, "batch", "seq", "vocab")
+
+
+def _masked_logits(logits: torch.Tensor, cfg: ModelConfig,
+                   first: int) -> torch.Tensor:
+    """Logits of vocab ids ``first``.. with the pad ids (>= vocab_size)
+    set to -1e30 in place."""
+    pad = cfg.vocab_size - first
+    if pad < logits.shape[-1]:
+        logits[..., max(pad, 0):] = L.NEG_INF
     return logits
 
 
@@ -262,13 +411,47 @@ def loss_fn(params: Model, cfg: ModelConfig,
     ``positions``. logz = log Σ exp(logit - m) + m with the row max m
     detached, as the reference's ``stop_gradient``; the gold logit is
     gathered (the reference's masked sum over the vocab picks the same
-    single value)."""
+    single value). Over a vocab-sharded mesh the [B, S] statistics are
+    all-reduced, the logits stay sharded."""
     logits = forward(params, cfg, batch["inputs"],
                      batch.get("positions")).float()
-    m = logits.amax(dim=-1, keepdim=True).detach()
-    logz = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
-    gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
+    m = SH.shard_as(logits.amax(dim=-1, keepdim=True).detach(),
+                    "batch", "seq", None)
+    sumexp = SH.shard_as(torch.exp(logits - m).sum(dim=-1), "batch", "seq")
+    logz = torch.log(sumexp) + m[..., 0]
+    gold = SH.shard_as(_gold_logit(logits, batch["labels"]), "batch", "seq")
     return torch.mean(logz - gold) + 1e-4 * torch.mean(logz.square())
+
+
+def _gold_logit(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits[b, s, labels[b, s]]: a gather, or, on vocab-sharded DTensor
+    logits, the reference's masked sum over each rank's vocab slice,
+    summed over the ranks (so the logits stay sharded)."""
+    if not SH.is_dtensor(logits):
+        return logits.gather(-1, labels.long()[..., None])[..., 0]
+    mesh = logits.device_mesh
+    batch = SH.shard_dims(logits, 0)
+    first = _slice_start(mesh, SH.shard_dims(logits, logits.dim() - 1))
+
+    def local(lg, lb):
+        start = first * lg.shape[-1]
+        ids = torch.arange(start, start + lg.shape[-1], device=lg.device)
+        hit = ids == lb.long()[..., None]
+        return torch.where(hit, lg, torch.zeros((), dtype=lg.dtype,
+                                                 device=lg.device)).sum(-1)
+
+    return SH.run_local(
+        local, mesh, (logits, labels),
+        (logits.placements, SH.layout(mesh, shard0=batch)),
+        SH.layout(mesh, shard0=batch,
+                  partial=SH.shard_dims(logits, logits.dim() - 1)))
+
+
+def _slice_start(mesh, dims) -> int:
+    """This rank's shard index of a tensor dim split over the mesh dims
+    ``dims`` (indices, the first major): its slice starts at that times
+    the local size."""
+    return SH.mesh_index(mesh, [mesh.mesh_dim_names[i] for i in dims])
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -290,7 +473,7 @@ def decode_step(params: Model, cache: Cache, cfg: ModelConfig,
     embeddings. Returns logits [B, 1, padded vocab] and the cache at
     ``pos + 1``; its tensors are updated in place."""
     pos = int(cache["pos"])
-    x = _embed(params, cfg, inputs)
+    x = SH.shard_as(_embed(params, cfg, inputs), "batch", None, "embed_act")
     for layer, lc in zip(params.layers, cache["layers"]):
         x = _decode_sublayer(cfg, layer, lc, x, pos)
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed import sharding as SH
 from .config import ModelConfig
 from .layers import _dtype, _init, rms_norm
 
@@ -75,8 +76,16 @@ def init_ssm(cfg: ModelConfig, gen: Optional[torch.Generator],
     return SSM(cfg, gen, device)
 
 
+def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if SH.is_dtensor(w):
+        from .layers import _sharded_matmul
+        return _sharded_matmul(x, w, torch.matmul)
+    return x @ w
+
+
 def _project(p: SSM, x: torch.Tensor):
-    return x @ p.z_proj, x @ p.x_proj, x @ p.bc_proj, x @ p.dt_proj
+    return tuple(_matmul(x, w) for w in (p.z_proj, p.x_proj, p.bc_proj,
+                                         p.dt_proj))
 
 
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
@@ -93,22 +102,37 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
 
 def ssm_fwd(p: SSM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Prefill. x: [B, S, d] with S <= ssm_chunk or S a multiple of it."""
-    bsz, s, _ = x.shape
-    di, n, h, hp = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads, \
-        cfg.ssm_head_dim
+    s = x.shape[1]
     q = min(cfg.ssm_chunk, s)
     if s % q:
         raise ValueError(
             f"ssm_fwd needs S <= ssm_chunk or S a multiple of it: S = {s}, "
             f"ssm_chunk = {cfg.ssm_chunk}")
-    nc = s // q
-
     z, xc, bc, dt_raw = _project(p, x)
-    xc = _causal_conv(xc, p.conv_wx, p.conv_bx)
-    bc = _causal_conv(bc, p.conv_wbc, p.conv_bbc)
+    weights = (p.conv_wx, p.conv_bx, p.conv_wbc, p.conv_bbc, p.a_log,
+               p.d_skip, p.dt_bias)
+    if SH.is_dtensor(xc):
+        y = _sharded_scan(cfg, xc, bc, dt_raw, weights)
+    else:
+        y = _scan(cfg, xc, bc, dt_raw, *weights)
+    y = rms_norm(y.to(x.dtype) * F.silu(z), p.norm, cfg.norm_eps)
+    return _matmul(y, p.out_proj)
+
+
+def _scan(cfg: ModelConfig, xc, bc, dt_raw, conv_wx, conv_bx, conv_wbc,
+          conv_bbc, a_log, d_skip, dt_bias) -> torch.Tensor:
+    """The convolutions and the chunked SSD scan of [B, S, H·P] inputs
+    (any H: the heads these tensors hold) -> y [B, S, H·P] float32."""
+    bsz, s, di = xc.shape
+    n, hp = cfg.ssm_state, cfg.ssm_head_dim
+    h = di // hp
+    q = min(cfg.ssm_chunk, s)
+    nc = s // q
+    xc = _causal_conv(xc, conv_wx, conv_bx)
+    bc = _causal_conv(bc, conv_wbc, conv_bbc)
     xs = xc.reshape(bsz, s, h, hp)
-    dt = F.softplus(dt_raw.float() + p.dt_bias)                  # [B, S, H]
-    a = -torch.exp(p.a_log)                                      # [H]
+    dt = F.softplus(dt_raw.float() + dt_bias)                    # [B, S, H]
+    a = -torch.exp(a_log)                                        # [H]
 
     xs_c = xs.reshape(bsz, nc, q, h, hp)
     xs_f = xs_c.float()
@@ -116,7 +140,7 @@ def ssm_fwd(p: SSM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     c_c = bc[..., n:].reshape(bsz, nc, q, n).float()
     dt_c = dt.reshape(bsz, nc, q, h)
     cs = torch.cumsum(dt_c * a, dim=2)                           # inclusive
-    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=xc.device))
 
     # intra-chunk, every chunk at once: the masked quadratic form, decays
     # in float32, wmat rounded to the model's dtype as the reference's
@@ -144,10 +168,44 @@ def ssm_fwd(p: SSM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         * torch.exp(cs)[..., None]
 
     y = (intra + inter).reshape(bsz, s, h, hp)
-    y = y + p.d_skip[None, None, :, None] * xs.float()
-    y = y.reshape(bsz, s, di).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p.norm, cfg.norm_eps)
-    return y @ p.out_proj
+    y = y + d_skip[None, None, :, None] * xs.float()
+    return y.reshape(bsz, s, di).to(xc.dtype)
+
+
+def _sharded_scan(cfg: ModelConfig, xc, bc, dt_raw, weights):
+    """:func:`_scan` on DTensors: each rank scans its batch shard and, when
+    "model" splits the inner dim into whole heads, its heads (the shared
+    B, C projection and each head's dt, A, D and bias sliced out of their
+    replicated copies); else every "model" rank scans all heads."""
+    conv_wx, conv_bx, conv_wbc, conv_bbc, a_log, d_skip, dt_bias = weights
+    mesh = xc.device_mesh
+    sizes = SH.axis_sizes(mesh)
+    h = cfg.ssm_heads
+    msize = sizes.get("model", 1)
+    batch = SH.shard_dims(xc, 0)
+    heads = ([mesh.mesh_dim_names.index("model")]
+             if "model" in sizes and h % msize == 0 else [])
+    hl = h // msize if heads else h
+    first = mesh.get_local_rank("model") * hl if heads else 0
+    # a replicated weight's gradient is partial where ranks differ
+    shared = SH.layout(mesh, partial=batch + heads)
+    inner = SH.layout(mesh, shard0=batch, shard2=heads)
+    rows = SH.layout(mesh, shard0=batch)
+    args = (xc, bc, dt_raw, conv_wx, conv_bx, conv_wbc, conv_bbc, a_log,
+            d_skip, dt_bias)
+    in_pl = (inner, rows, rows, SH.layout(mesh, shard1=heads),
+             SH.layout(mesh, shard0=heads)) + (SH.layout(mesh),) * 5
+    grads = (inner, SH.layout(mesh, shard0=batch, partial=heads),
+             SH.layout(mesh, shard0=batch, partial=heads),
+             SH.layout(mesh, shard1=heads, partial=batch),
+             SH.layout(mesh, shard0=heads, partial=batch)) + (shared,) * 5
+
+    def local(xl, bl, dl, wx, bx, wbc, bbc, al, ds, db):
+        sl = slice(first, first + hl)
+        return _scan(cfg, xl, bl, dl[..., sl], wx, bx, wbc, bbc, al[sl],
+                     ds[sl], db[sl])
+
+    return SH.run_local(local, mesh, args, in_pl, inner, grads)
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
@@ -195,4 +253,4 @@ def ssm_decode(p: SSM, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     cache["conv_x"].copy_(win_x[:, 1:])
     cache["conv_bc"].copy_(win_bc[:, 1:])
     cache["state"].copy_(state)
-    return y @ p.out_proj
+    return _matmul(y, p.out_proj)

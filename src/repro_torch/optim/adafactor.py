@@ -20,7 +20,8 @@ from typing import Callable, Union
 
 import torch
 
-from .adamw import f32, learning_rate_at, step_state
+from .adamw import (f32, host_numbers, learning_rate_at, set_step,
+                    step_count, step_state)
 from .tree import leaf_groups, named_leaves
 
 
@@ -57,6 +58,22 @@ class Adafactor:
                            {"v": torch.zeros(p.shape, **zeros)})
         return {"v": v, "step": step_state(params)}
 
+    def state_logical_axes(self, params_axes, params_shapes):
+        """The state's logical axes by parameter name: ``vr`` the
+        parameter's without its last axis, ``vc`` without its second last,
+        where the reference leaf's shape (``params_shapes``: a model or a
+        dict of tensors, grouped as :func:`.tree.leaf_groups`) is
+        factored; else ``v`` with the parameter's axes; ``step`` ()."""
+        leaves = named_leaves(params_shapes)
+        out = {}
+        for grp in leaf_groups(params_shapes):
+            factored = self._factored(grp.shape(leaves))
+            for name in grp.names:
+                ax = tuple(params_axes[name])
+                out[name] = ({"vr": ax[:-1], "vc": ax[:-2] + ax[-1:]}
+                             if factored else {"v": ax})
+        return {"v": out, "step": ()}
+
     def _precond(self, g: torch.Tensor, v) -> torch.Tensor:
         """The float32 gradient ``g`` over the second moment ``v``."""
         if "vr" in v:
@@ -74,10 +91,11 @@ class Adafactor:
         returned. ``grads`` maps each parameter's name to its gradient; it
         is read, not changed."""
         leaves = named_leaves(params)
-        step = int(state["step"]) + 1
+        step = step_count(state) + 1
         lr = learning_rate_at(self.learning_rate, step)
-        beta2_t = 1.0 - f32(step) ** (-self.decay)
-        beta2, rest = float(beta2_t), float(1.0 - beta2_t)
+        with host_numbers():
+            beta2_t = 1.0 - f32(step) ** (-self.decay)
+            beta2, rest = float(beta2_t), float(1.0 - beta2_t)
         for grp in leaf_groups(params):
             sq = None
             for name in grp.names:
@@ -102,5 +120,5 @@ class Adafactor:
                 p32 = p.float()
                 p.copy_(p32 - pre.add_(p32, alpha=self.weight_decay)
                         .mul_(lr))
-        state["step"].fill_(step)
+        set_step(state, step)
         return params, state

@@ -23,11 +23,36 @@ from .tree import Group, Leaves, leaf_groups, named_leaves
 def learning_rate_at(learning_rate, step: int) -> float:
     """The float32 learning rate at ``step``: a schedule's value (it gets
     the step as an int32 tensor) or the constant, rounded to float32."""
+    with host_numbers():
+        return _learning_rate_at(learning_rate, step)
+
+
+def _learning_rate_at(learning_rate, step: int) -> float:
     if callable(learning_rate):
         lr = learning_rate(torch.tensor(step, dtype=torch.int32))
     else:
         lr = torch.tensor(learning_rate, dtype=torch.float32)
     return float(lr.to(torch.float32))
+
+
+def host_numbers():
+    """A context in which the step count and the learning rate are host
+    numbers: outside any ``FakeTensorMode`` (the dry run traces the step
+    with fake tensors, but its step counter and schedule are real)."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+    return unset_fake_temporarily()
+
+
+def step_count(state) -> int:
+    """The state's step counter as an int."""
+    with host_numbers():
+        return int(state["step"])
+
+
+def set_step(state, step: int) -> None:
+    with host_numbers():
+        state["step"].fill_(step)
 
 
 def f32(x) -> torch.Tensor:
@@ -36,10 +61,12 @@ def f32(x) -> torch.Tensor:
 
 
 def step_state(params) -> torch.Tensor:
-    """A 0-dim int32 step counter on the parameters' device."""
+    """A 0-dim int32 step counter on the parameters' device (a real
+    tensor, also under a ``FakeTensorMode``)."""
     leaves = list(named_leaves(params).values())
     dev = leaves[0].device if leaves else torch.device("cpu")
-    return torch.zeros((), dtype=torch.int32, device=dev)
+    with host_numbers():
+        return torch.zeros((), dtype=torch.int32, device=dev)
 
 
 def _square_sum(t: torch.Tensor) -> torch.Tensor:
@@ -105,18 +132,28 @@ class AdamW:
                                for n, p in leaves.items()}
         return state
 
+    def state_logical_axes(self, params_axes, params_shapes=None):
+        """The state's logical axes: each moment (and master copy) has its
+        parameter's axes, keyed by the parameter's name; ``step`` ()."""
+        del params_shapes
+        ax = {"mu": dict(params_axes), "nu": dict(params_axes), "step": ()}
+        if self.keep_master:
+            ax["master"] = dict(params_axes)
+        return ax
+
     @torch.no_grad()
     def update(self, grads, state, params):
         """One step: ``params`` and ``state`` updated in place and
         returned. ``grads`` maps each parameter's name to its gradient; it
         is read, not changed."""
         leaves = named_leaves(params)
-        step = int(state["step"]) + 1
+        step = step_count(state) + 1
         lr = learning_rate_at(self.learning_rate, step)
         scale = clip_scale(grads, self.grad_clip, leaf_groups(params))
         b1, b2 = self.b1, self.b2
-        c1 = float(1.0 - f32(b1) ** f32(step))
-        c2 = float(1.0 - f32(b2) ** f32(step))
+        with host_numbers():
+            c1 = float(1.0 - f32(b1) ** f32(step))
+            c2 = float(1.0 - f32(b2) ** f32(step))
         for name, p in leaves.items():
             g = grads[name]
             g32 = g.float() if scale is None else \
@@ -133,5 +170,5 @@ class AdamW:
             if self.keep_master:
                 base.copy_(new)
             p.copy_(new)
-        state["step"].fill_(step)
+        set_step(state, step)
         return params, state

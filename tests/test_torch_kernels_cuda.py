@@ -1208,3 +1208,66 @@ def test_every_parameter_gets_a_gradient_on_the_card(cuda):
         for name, g in zip(names, grads):
             assert g is not None and bool(torch.isfinite(g).all()) and \
                 bool(g.abs().amax() > 0), (arch, name)
+
+
+def test_flash_under_local_map_equals_plain(cuda):
+    """The attention core on DTensors of a fake 2×2 group on the card:
+    each rank's kernel launch on its 2 query heads and the kv head they
+    read (4 heads over "model", one kv head gathered) equals the plain
+    version on the same local tensors (the bf16 tolerance above)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import fake_group, make_host_mesh
+    from repro_torch.models.layers import AttentionCore
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    with fake_group(4):
+        mesh = make_host_mesh(2, 2, device=cuda)
+
+        def rand(heads):
+            return torch.randn((2, 256, heads, 128), generator=gen,
+                               device=cuda, dtype=torch.bfloat16)
+
+        ql, kl, vl = rand(2), rand(1), rand(1)
+        q = DTensor.from_local(ql, mesh, [Shard(0), Shard(2)],
+                               run_check=False)
+        k = DTensor.from_local(kl, mesh, [Shard(0), Replicate()],
+                               run_check=False)
+        v = DTensor.from_local(vl, mesh, [Shard(0), Replicate()],
+                               run_check=False)
+        flash_attention.reset_launch_counts()
+        with sharding.use_rules(mesh), torch.no_grad():
+            out = AttentionCore(0)(q, k, v)
+        torch.cuda.synchronize()
+        assert flash_attention.ROUTE_LAUNCHES == {"wgmma_bf16": 1,
+                                                  "fma_fp32": 0}
+        assert out.placements == (Shard(0), Shard(2))
+        got = out.to_local().float()
+    want = ref.causal_attention(ql, kl, vl, 0).float()
+    tol = 1e-3 + 2.0 ** -8 * float(vl.float().abs().max())
+    torch.testing.assert_close(got, want, atol=tol, rtol=1e-2)
+    assert float((got - want).abs().mean()) <= 1e-3
+
+
+def test_local_shard_step_on_the_card(cuda):
+    """A reduced bfloat16 ``qwen3_8b`` train step as rank 0 of a fake
+    (2, 2) group on the card (``launch.dryrun.run_local_shard``): its
+    shards on the card, the kernel launched twice a layer (forward and
+    remat), its time and peak memory reported. The other ranks are
+    fake, so the loss is not checked."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.models import ShapeConfig, reduced
+
+    cfg = dataclasses.replace(reduced(configs.get("qwen3_8b"), layers=2),
+                              dtype="bfloat16")
+    flash_attention.reset_launch_counts()
+    res = dryrun.run_local_shard(cfg, ShapeConfig("t", 128, 8, "train"),
+                                 mesh_shape=(2, 2), steps=2, device=cuda)
+    assert flash_attention.ROUTE_LAUNCHES == {"wgmma_bf16": 2 * 2 * 2,
+                                              "fma_fp32": 0}
+    assert res["local_batch"] == (4, 128) and res["peak_bytes"] > 0
+    assert len(res["step_s"]) == 2 and all(t > 0 for t in res["step_s"])

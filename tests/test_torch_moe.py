@@ -119,7 +119,8 @@ def test_expert_parallel_switch():
     """``moe_impl="ep"``: without a mesh the reference's ``moe_fwd_ep``
     runs ``moe_fwd``, and so does the port (equal to the reference's
     ``_moe`` and to the port's own ``moe_fwd``, bit for bit); under a mesh
-    with a "model" axis the port raises, naming the queue item."""
+    the port's ``moe_fwd_ep`` takes DTensors, and on plain tensors it is
+    ``moe_fwd`` too (the sharded layer: ``test_torch_moe_ep.py``)."""
     r, t, rp, moe = _moe_pair("deepseek_v3", seed=3, moe_impl="ep")
     x = (np.random.default_rng(4).standard_normal((2, 16, t.d_model))
          .astype(np.float32))
@@ -128,8 +129,8 @@ def test_expert_parallel_switch():
     torch.testing.assert_close(got, TL.moe_fwd(moe, torch.from_numpy(x), t),
                                rtol=0, atol=0)
     with SH.use_rules(types.SimpleNamespace(shape={"data": 1, "model": 2})):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-            TM._moe(moe, torch.from_numpy(x), t)
+        torch.testing.assert_close(TM._moe(moe, torch.from_numpy(x), t), got,
+                                   rtol=0, atol=0)
     with SH.use_rules(types.SimpleNamespace(shape={"data": 2})):
         torch.testing.assert_close(TM._moe(moe, torch.from_numpy(x), t), got,
                                    rtol=0, atol=0)

@@ -1,6 +1,6 @@
 """The port's training loop (``launch/train.py``) on the CPU: the twins
-of ``tests/test_system.py``'s training tests, the straggler monitor, the
-mesh that waits for the production sharding, and the launcher.
+of ``tests/test_system.py``'s training tests, the straggler monitor, a
+mesh run outside a process group, and the launcher.
 
 The reference's tests check its own ``train``; these hold the port's to
 the same claims. A resumed run is bit-identical to a straight one: the
@@ -92,9 +92,10 @@ def test_step_monitor_flags_stragglers():
 
 
 def test_mesh_waits_for_production_sharding():
-    """A (data, model) mesh other than (1, 1) raises, naming the queue
-    item, before any state is built."""
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
+    """A (data, model) mesh other than (1, 1) trains over the ranks of a
+    process group (``test_torch_train_mesh.py``); outside one it raises
+    before any state is built, rather than train on one process."""
+    with pytest.raises(RuntimeError, match="process group"):
         train(TrainRunConfig(mesh_shape=(2, 1)), device="cpu")
 
 
