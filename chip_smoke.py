@@ -24,7 +24,12 @@ Phases, each printed as it runs:
      bytes. Attention by both routes (bfloat16: the wgmma
      tensor-core kernel; float32: the CUDA-core kernel), head dims
      16..256, MHA/GQA/MQA, windows 0/8/4096, S in {1, 97, 1000, 4096},
-     Sq != Skv and rows that see no key. Then each kernel timed at the
+     Sq != Skv and rows that see no key; the float32 route also with
+     3-group GQA (H 6, KV 2) and 8-head MQA (H 8, KV 1) packs and rows
+     that are not 16-byte aligned (D = 30 and 31, [..., 2:32] and
+     [..., 1:31] views), its library's registers, spills, shared memory
+     and blocks an SM, and its SASS counts (FFMA, LDS.128; no
+     tensor-core instruction). Then each kernel timed at the
      main path's shape beside its bound (the MinHash gather forms also
      beside the old route: two ``index_select`` row copies, then the rows
      kernel); attention at the repo's
@@ -35,8 +40,11 @@ Phases, each printed as it runs:
      zeroed before and read after, and timed beside the plain version and
      ``scaled_dot_product_attention`` (a yardstick the port never calls,
      whose own error against the plain version is printed too); the
-     float32 route driven and timed on its own at qwen3_8b's heads, S =
-     ATTN_FP32_SEQ (shapes from ``repro_torch.configs``).
+     float32 route driven on its own at qwen3_8b's heads, S =
+     ATTN_FP32_SEQ, and timed there, at phase 3i's float32 layer (S =
+     HOOK_SEQ), at gemma_2b's MQA heads and at a 3-group layer, with the SM
+     clock sampled during each timing (shapes from
+     ``repro_torch.configs``, ``fp32_attention_shapes``).
   3. The Bloom path: a scale-21 Kronecker graph (2.1M vertices, 31.8M
      edges), ``session(g, "bf", storage_budget=1.0)`` on the card,
      ``triangle_count()`` and ``local_clustering()``. The launch counts are
@@ -305,6 +313,13 @@ ATTN_ARCHS = ("qwen3_8b", "h2o_danube3_4b", "gemma_2b", "deepseek_v3")
 ATTN_CONTEXT = {"gemma_2b": 8192, "deepseek_v3": 2048}
 #: the float32 route's timing length, at qwen3_8b's heads
 ATTN_FP32_SEQ = 4096
+#: the float32 route's other timed cells (see ``fp32_attention_shapes``):
+#: a 3-group GQA layer (H 6, KV 2, D 64) at ATTN_FP32_SEQ
+ATTN_FP32_GQA3 = (6, 2, 64)
+#: SASS opcodes of the tensor cores, none of which the float32 library may
+#: hold
+TENSOR_CORE_OPS = ("HMMA", "HGMMA", "IMMA", "IGMMA", "BMMA", "DMMA",
+                   "QGMMA", "UTCHMMA")
 #: bound on the mean |kernel - plain| of a bfloat16 case (see attn_tol)
 ATTN_BF16_MEAN = 1e-3
 
@@ -780,6 +795,148 @@ def attention_shapes():
     return shapes, (b, ATTN_FP32_SEQ, h, kv, d, window)
 
 
+def fp32_attention_shapes():
+    """The float32 route's timed cells: name -> (batch, seq, heads, kv
+    heads, head dim, window). The timing shape (qwen3_8b's heads at
+    ATTN_FP32_SEQ, the first), phase 3i's float32 layer (the same heads at
+    HOOK_SEQ), gemma_2b's MQA heads at ATTN_FP32_SEQ, and a 3-group GQA
+    layer (ATTN_FP32_GQA3) at ATTN_FP32_SEQ."""
+    from repro_torch import configs
+
+    shapes = {}
+    for name, seq in (("qwen3_8b", ATTN_FP32_SEQ), ("qwen3_8b", HOOK_SEQ),
+                      ("gemma_2b", ATTN_FP32_SEQ)):
+        c = configs.get(name)
+        shapes[f"{name} S={seq}"] = (1, seq, c.num_heads, c.num_kv_heads,
+                                     c.head_dim, c.sliding_window)
+    h, kv, d = ATTN_FP32_GQA3
+    shapes[f"gqa3 S={ATTN_FP32_SEQ}"] = (1, ATTN_FP32_SEQ, h, kv, d, 0)
+    return shapes
+
+
+def fp32_build_summary(lib_path) -> tuple[str, list]:
+    """The float32 library's ``-Xptxas -v`` lines, one per block shape
+    (head dim DP, rows R, threads): registers and spill bytes, with the
+    dynamic shared memory and the blocks resident on an SM that the CUDA
+    occupancy API reports for it."""
+    import ctypes
+
+    shapes, entry = [], None
+    log = (lib_path.parent / "flash_attention.log").read_text()
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*flash_fwd_kernelILi(\d+)"
+                      r"ELi(\d+)ELi(\d+)E", line)
+        if m:
+            entry = dict(dp=int(m.group(1)), rows=int(m.group(2)),
+                         threads=int(m.group(3)), spill_stores=0,
+                         spill_loads=0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry:
+            entry["spill_stores"], entry["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            entry["registers"] = int(m.group(1))
+            shapes.append(entry)
+            entry = None
+    occ = (ctypes.c_int * 45)()
+    rc = ctypes.CDLL(str(lib_path)).pg_flash_occupancy(occ)
+    require(rc == 0, f"pg_flash_occupancy failed: error {rc}")
+    fit = {tuple(occ[5 * i:5 * i + 3]): (occ[5 * i + 3], occ[5 * i + 4])
+           for i in range(9)}
+    for e in shapes:
+        e["smem_bytes"], e["blocks_per_sm"] = fit[(e["dp"], e["rows"],
+                                                  e["threads"])]
+    require(len(shapes) == 9, f"ptxas reported {len(shapes)} float32 "
+            f"kernels, expected 9")
+    text = "; ".join(
+        f"DP={e['dp']} R={e['rows']} {e['threads']} threads: "
+        f"{e['registers']} registers, spill stores/loads "
+        f"{e['spill_stores']}/{e['spill_loads']} bytes, {e['smem_bytes']} "
+        f"bytes shared, {e['blocks_per_sm']} block(s) = "
+        f"{e['blocks_per_sm'] * e['threads'] // 32} warps an SM"
+        for e in sorted(shapes, key=lambda e: (e["dp"], -e["rows"])))
+    return text, shapes
+
+
+def sass_counts(lib_path) -> dict | None:
+    """Per kernel of a built library, from ``cuobjdump -sass`` (None where
+    the toolkit has no cuobjdump): FFMA, LDS.128 and tensor-core
+    instructions (TENSOR_CORE_OPS) in the whole function, and (FFMA,
+    LDS.128, LDS of any width) in each innermost loop that holds FFMA (a
+    loop: the instructions from a backward branch's target to the
+    branch). Instructions predicated on ``!PT`` never run and are not
+    counted."""
+    from repro_torch.kernels import _build
+
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    functions, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            k = re.search(r"flash_fwd_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+                          m.group(1))
+            name = (f"DP={k.group(1)} R={k.group(2)} {k.group(3)} threads"
+                    if k else m.group(1))
+            functions[name] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+        if name is not None and m and "@!PT" not in m.group(2):
+            functions[name].append((int(m.group(1), 16), m.group(2)))
+    tensor = re.compile(r"\b(" + "|".join(TENSOR_CORE_OPS) + r")\b")
+
+    def count(ins):
+        return (sum(bool(re.search(r"\bFFMA\b", t)) for _, t in ins),
+                sum(bool(re.search(r"\bLDS\.128\b", t)) for _, t in ins),
+                sum(bool(re.search(r"\bLDS\b", t)) for _, t in ins))
+    counts = {}
+    for name, ins in functions.items():
+        loops = []
+        for addr, text in ins:
+            m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
+            if m and int(m.group(1), 16) < addr:
+                loops.append((int(m.group(1), 16), addr))
+        inner = [(a, b) for a, b in loops
+                 if not any(a <= c and d <= b and (c, d) != (a, b)
+                            for c, d in loops)]
+        ffma, lds128, _ = count(ins)
+        counts[name] = dict(
+            ffma=ffma, lds128=lds128,
+            tensor=sum(bool(tensor.search(t)) for _, t in ins),
+            loops=[c for c in (count([x for x in ins if a <= x[0] <= b])
+                               for a, b in sorted(set(inner))) if c[0]])
+    return counts
+
+
+def sm_clocks(torch, load, measure, seconds: float = 0.5):
+    """Run ``load()`` for ``seconds``, then ``measure()`` (a timing of the
+    same work), while nvidia-smi samples the SM clock every 20 ms; returns
+    (what ``measure`` returned, the median SM clock in MHz, the number of
+    samples)."""
+    poll = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits", "-lms", "20"], stdout=subprocess.PIPE,
+        stderr=subprocess.DEVNULL, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            load()
+            torch.cuda.synchronize()
+        result = measure()
+        torch.cuda.synchronize()
+    finally:
+        poll.terminate()
+        out, _ = poll.communicate(timeout=30)
+    mhz = sorted(int(x) for x in out.split() if x.strip().isdigit())
+    return result, (mhz[len(mhz) // 2] if mhz else None), len(mhz)
+
+
 def attended_pairs(s: int, window: int) -> int:
     """(query, key) pairs causal attention over s positions attends."""
     if not window or window >= s:
@@ -846,17 +1003,37 @@ def wgmma_build_summary(lib_path) -> str:
             f"{regs[1]}; " + "; ".join(parts))
 
 
-def phase_attention(torch, flash_attention, ref, flush, lib_path):
+def phase_attention(torch, flash_attention, ref, flush, lib_path,
+                    fp32_lib_path):
     """Phase 2, attention: both routes against the plain version over
-    types, head dims and layouts, then the prefill shapes (bf16, the
-    tensor-core route): one counted drive through the entry point, parity,
-    and timing; then the float32 route, counted and timed on its own."""
+    types, head dims and layouts (the float32 route also over 3-group GQA,
+    8-head MQA packs and rows that are not 16-byte aligned), then the
+    prefill shapes (bf16, the tensor-core route): one counted drive
+    through the entry point, parity, and timing; then the float32 route,
+    counted on its own and timed at ``fp32_attention_shapes``."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     err = {"float32": 0.0, "bfloat16": 0.0}
     mean_err = {"float32": 0.0, "bfloat16": 0.0}
     print(f"  flash_attention_wgmma build: {wgmma_build_summary(lib_path)}",
           flush=True)
+    fp32_summary, fp32_shapes = fp32_build_summary(fp32_lib_path)
+    print(f"  flash_attention (float32) build: {fp32_summary}", flush=True)
+    sass = sass_counts(fp32_lib_path)
+    if sass is None:
+        print("  flash_attention (float32) SASS: no cuobjdump in the "
+              "toolkit, not counted", flush=True)
+    else:
+        require(len(sass) == 9 and not any(c["tensor"]
+                                           for c in sass.values()),
+                f"float32 library SASS: {sass}")
+        print("  flash_attention (float32) SASS (cuobjdump -sass; no "
+              "tensor-core instruction in any kernel): " + "; ".join(
+                  f"{name}: innermost loops " + ", ".join(
+                      f"{f} FFMA / {l} LDS.128 ({f / max(l, 1):.1f} each; "
+                      f"{a} LDS of any width)" for f, l, a in c["loops"])
+                  + f"; whole function {c['ffma']} FFMA / {c['lds128']} "
+                  f"LDS.128" for name, c in sass.items()), flush=True)
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, device=dev, generator=gen).to(dtype)
@@ -899,6 +1076,32 @@ def phase_attention(torch, flash_attention, ref, flush, lib_path):
                   ref.flash_attention_folded(q, k, v, groups=4,
                                              window=window), v,
                   f"{dtype} folded Sq={sq} Skv={skv} window={window}")
+            cases += 1
+    # the float32 kernel's head packs: 3 groups, and 8 heads of one kv head
+    for d in (16, 64, 128, 256):
+        for h, kv in ((6, 2), (8, 1)):
+            for window in (0, 8):
+                for sq in (97, 1000, 4096):
+                    q = randn(1, sq, h, d)
+                    k, v = randn(1, sq, kv, d), randn(1, sq, kv, d)
+                    check(flash_attention.flash_attention(q, k, v,
+                                                          window=window),
+                          ref.causal_attention(q, k, v, window), v,
+                          f"float32 D={d} H={h} KV={kv} window={window} "
+                          f"S={sq}")
+                    cases += 1
+    # rows that are not 16-byte aligned: the kernel's 8- and 4-byte copies
+    for what, d, cut in (("D=30", 30, None), ("D=31", 31, None),
+                         ("[..., 2:32] of D=40", 40, (2, 32)),
+                         ("[..., 1:31] of D=40", 40, (1, 31))):
+        for window in (0, 8):
+            q = randn(2, 1000, 4, d)
+            k, v = randn(2, 1000, 2, d), randn(2, 1000, 2, d)
+            if cut:
+                q, k, v = (x[..., cut[0]:cut[1]] for x in (q, k, v))
+            check(flash_attention.flash_attention(q, k, v, window=window),
+                  ref.causal_attention(q, k, v, window), v,
+                  f"float32 {what} window={window}")
             cases += 1
     torch.cuda.synchronize()
     print(f"phase 2: flash_attention equals its plain version on {cases} "
@@ -965,7 +1168,8 @@ def phase_attention(torch, flash_attention, ref, flush, lib_path):
               flush=True)
     del inputs, outs
 
-    # the float32 route on its own path: one counted call, then timed
+    # the float32 route on its own path: one counted call, then timed at
+    # each of fp32_attention_shapes (the timing shape first)
     b, sq, h, kv, d, window = fp32_shape
     q = randn(b, sq, h, d)
     k, v = randn(b, sq, kv, d), randn(b, sq, kv, d)
@@ -976,31 +1180,50 @@ def phase_attention(torch, flash_attention, ref, flush, lib_path):
     require(fp32_launches == {"wgmma_bf16": 0, "fma_fp32": 1},
             f"flash_attention on float32 launched {fp32_launches}")
     check(out, ref.causal_attention(q, k, v, window), v, "float32 timing shape")
-    flops = 4 * b * h * d * attended_pairs(sq, window)
-    nbytes = 4 * (2 * b * sq * h * d + 2 * b * sq * kv * d)
-    bound, by = bound_ms(nbytes, flops, PEAK_FP32_FLOPS)
-    ms = time_ms(lambda: flash_attention.flash_attention(
-        q, k, v, window=window), flush, reps=5, warmup=1)
-    plain = time_ms(lambda: ref.causal_attention(q, k, v, window), flush,
-                    reps=3, warmup=1)
-    try:
-        library = time_ms(library_attention(torch, q, k, v, window), flush,
-                          reps=3, warmup=1)
-        why = ""
-    except (RuntimeError, ValueError) as exc:
-        library, why = None, f" ({type(exc).__name__}: {exc})"[:300]
-    timing["fp32"] = dict(ms=ms, plain_ms=plain, library_ms=library,
-                          library_note=why.strip(" ()") or None,
-                          bound_ms=bound, bound_by=by,
-                          max_abs_err=err["float32"],
-                          timed_at=f"B={b} S={sq} H={h} KV={kv} D={d} "
-                                   f"window={window}, float32 (no prefill "
-                                   f"shape is float32)")
-    lib = "null" + why if library is None else f"{library:.3f} ms"
-    print(f"  flash_attention fp32 (B={b} S={sq} H={h} KV={kv} D={d}, "
-          f"float32): {ms:.3f} ms (plain {plain:.3f} ms, "
-          f"scaled_dot_product_attention {lib}; bound {bound:.3f} ms by {by} "
-          f"at 67 TFLOP/s fp32; {bound / ms:.2%} of bound)", flush=True)
+    del out
+    cells = {}
+    for name, (b, sq, h, kv, d, window) in fp32_attention_shapes().items():
+        if (b, sq, h, kv, d, window) != fp32_shape:
+            q = randn(b, sq, h, d)
+            k, v = randn(b, sq, kv, d), randn(b, sq, kv, d)
+            check(flash_attention.flash_attention(q, k, v, window=window),
+                  ref.causal_attention(q, k, v, window), v,
+                  f"float32 {name}")
+        flops = 4 * b * h * d * attended_pairs(sq, window)
+        nbytes = 4 * (2 * b * sq * h * d + 2 * b * sq * kv * d)
+        bound, by = bound_ms(nbytes, flops, PEAK_FP32_FLOPS)
+
+        def call(q=q, k=k, v=v, window=window):
+            return flash_attention.flash_attention(q, k, v, window=window)
+        ms, mhz, samples = sm_clocks(
+            torch, call, lambda: time_ms(call, flush, reps=10, warmup=1))
+        plain = time_ms(lambda: ref.causal_attention(q, k, v, window), flush,
+                        reps=3, warmup=1)
+        try:
+            library = time_ms(library_attention(torch, q, k, v, window),
+                              flush, reps=3, warmup=1)
+            why = ""
+        except (RuntimeError, ValueError) as exc:
+            library, why = None, f" ({type(exc).__name__}: {exc})"[:300]
+        cells[name] = dict(ms=ms, plain_ms=plain, library_ms=library,
+                           library_note=why.strip(" ()") or None,
+                           bound_ms=bound, bound_by=by, sm_mhz=mhz,
+                           max_abs_err=err["float32"],
+                           timed_at=f"B={b} S={sq} H={h} KV={kv} D={d} "
+                                    f"window={window}, float32")
+        lib = "null" + why if library is None else f"{library:.3f} ms"
+        print(f"  flash_attention fp32 {name} (B={b} S={sq} H={h} KV={kv} "
+              f"D={d} window={window}, float32): {ms:.3f} ms at SM clock "
+              f"{mhz} MHz (median of {samples} samples) (plain {plain:.3f} "
+              f"ms, scaled_dot_product_attention {lib}; bound {bound:.3f} ms "
+              f"by {by} at 67 TFLOP/s fp32; {bound / ms:.2%} of bound)",
+              flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+    first = next(iter(cells))
+    timing["fp32"] = dict(cells[first], timed_at=cells[first]["timed_at"]
+                          + " (no prefill shape is float32)",
+                          fp32_cells=cells)
     return timing, launches["wgmma_bf16"], fp32_launches["fma_fp32"]
 
 
@@ -4725,7 +4948,7 @@ def main() -> None:
                                         flush))
     attn, attn_launches, fp32_launches = phase_attention(
         torch, kernels.flash_attention, ref, flush,
-        libs["flash_attention_wgmma"])
+        libs["flash_attention_wgmma"], libs["flash_attention"])
     timing["flash_attention_wgmma"] = attn["qwen3_8b"]
     timing["flash_attention"] = attn["fp32"]
     del flush
@@ -4985,7 +5208,7 @@ def main() -> None:
                       "old_route_ms", "warm_ms", "real_rows", "deep_ms",
                       "deep_warm_ms", "deep_real_rows", "khash_gather_ms",
                       "khash_gather_warm_ms")
-           or key.startswith(("clique_", "train_"))},
+           or key.startswith(("clique_", "train_", "fp32_"))},
     } for name, source, replaces, launches in rows]
     print(smi)
     print(json.dumps({"kernels": records}))

@@ -374,7 +374,8 @@ def _run_smoke(cwd: Path):
 @pytest.mark.parametrize("script", ["segment_variants.py",
                                     "clique_passes.py",
                                     "minhash_variants.py",
-                                    "minhash_passes.py"])
+                                    "minhash_passes.py",
+                                    "attention_fp32.py"])
 def test_gpu_scripts_fail_without_gpu(script):
     """The measurement scripts beside chip_smoke.py refuse to run without
     a GPU instead of timing the CPU, and print no result."""

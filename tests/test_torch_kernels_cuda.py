@@ -471,15 +471,16 @@ def _qkv(gen, device, dtype, b, sq, skv, h, kv, d):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [16, 64, 120, 128, 256])
-@pytest.mark.parametrize("h,kv", [(2, 2), (4, 2), (4, 1)])
+@pytest.mark.parametrize("h,kv", [(2, 2), (4, 2), (4, 1), (6, 2), (8, 1)])
 @pytest.mark.parametrize("s,window", [(1, 0), (97, 8), (1000, 0),
                                       (1000, 4096), (300, 1)])
 def test_flash_kernel_equals_plain_version(cuda, dtype, d, h, kv, s, window):
-    """MHA, GQA and MQA, head dims below, at and above a warp (120 is no
-    multiple of 32; 256 needs > 48 KB of shared memory), ragged S, with
-    and without a window: the kernel equals the plain version, in q's
-    dtype, and counts one launch on its dtype's route (bfloat16: the
-    wgmma kernel; float32: the CUDA-core kernel)."""
+    """MHA, GQA (also 3 groups) and MQA (also 8 query heads, which the
+    float32 kernel packs into one block), head dims below, at and above a
+    warp (120 is no multiple of 32; 256 needs > 48 KB of shared memory),
+    ragged S, with and without a window: the kernel equals the plain
+    version, in q's dtype, and counts one launch on its dtype's route
+    (bfloat16: the wgmma kernel; float32: the CUDA-core kernel)."""
     gen = torch.Generator(device=cuda).manual_seed(d * 1009 + s + window)
     q, k, v = _qkv(gen, cuda, dtype, 2, s, s, h, kv, d)
     before = flash_attention.LAUNCHES["flash_attention"]
@@ -490,6 +491,26 @@ def test_flash_kernel_equals_plain_version(cuda, dtype, d, h, kv, s, window):
     routes[_ROUTE[dtype]] += 1
     assert flash_attention.ROUTE_LAUNCHES == routes
     _assert_attn_close(got, ref.causal_attention(q, k, v, window), v)
+
+
+@pytest.mark.parametrize("d,cut", [(30, None), (31, None), (40, (2, 32)),
+                                   (40, (1, 31))])
+@pytest.mark.parametrize("window", [0, 7])
+def test_flash_fp32_rows_not_16_byte_aligned(cuda, d, cut, window):
+    """float32 rows whose start is not a 16-byte multiple (D = 30 and 31,
+    and q, k, v as [..., 2:32] or [..., 1:31] views of D = 40 tensors): the
+    kernel copies K/V tiles 8 or 4 bytes at a time and equals the plain
+    version, reading the views in place (one launch, no copy)."""
+    gen = torch.Generator(device=cuda).manual_seed(d * 31 + window)
+    q, k, v = _qkv(gen, cuda, torch.float32, 2, 300, 300, 6, 2, d)
+    if cut:
+        q, k, v = (x[..., cut[0]:cut[1]] for x in (q, k, v))
+        assert all(x.data_ptr() % 16 for x in (q, k, v))
+    before = flash_attention.ROUTE_LAUNCHES["fma_fp32"]
+    got = flash_attention.flash_attention(q, k, v, window=window)
+    assert flash_attention.ROUTE_LAUNCHES["fma_fp32"] == before + 1
+    torch.testing.assert_close(got, ref.causal_attention(q, k, v, window),
+                               **_ATTN_TOL[torch.float32])
 
 
 @pytest.mark.parametrize("sq,skv,window", [(200, 70, 0), (70, 200, 0),
