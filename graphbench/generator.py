@@ -1,0 +1,62 @@
+"""Graph500's stochastic Kronecker generator, drawn on the device.
+
+Each of the ``edge_factor · 2^scale`` edges picks one quadrant of the
+adjacency matrix per bit of its endpoints, with probabilities (A, B, C,
+1 − A − B − C); vertex ids and the order of the edge list are then
+permuted at random (Graph500 specification §3; the same law as
+``repro_torch.core.graph.kronecker``, which draws on the host). Self loops
+and repeated edges are kept: the loader under test drops them.
+
+The quadrants and the vertex permutation are drawn from the
+configuration's ``graph_seed`` and the order of the edge list from the
+run's seed, so every run of a configuration mines the same graph, handed
+to the loader in another order: the same sizes, degrees and clique
+candidates, the same work. (Labels drawn per run would change the work:
+the 4-clique pass enumerates the neighbours above each vertex, whose
+count depends on the labels of the hubs.) Each stream is one
+``torch.Generator`` on ``device``, so a seed gives the same edges on the
+same device and PyTorch build.
+"""
+from __future__ import annotations
+
+import hashlib
+
+import torch
+
+
+def derive_seed(seed: int, *labels) -> int:
+    """A 63-bit seed for one purpose (``labels``) of a run's ``seed``."""
+    text = ":".join(str(x) for x in (seed, *labels)).encode()
+    return int.from_bytes(hashlib.blake2b(text, digest_size=8).digest(),
+                          "little") >> 1
+
+
+def kronecker_edges(config: dict, seed: int, device) -> torch.Tensor:
+    """int64[edge_factor · 2^scale, 2] raw Kronecker edges on ``device``,
+    of a configuration's ``scale``, ``edge_factor``, ``a``, ``b``, ``c``
+    and ``graph_seed``, in an order drawn from the run's ``seed``."""
+    if config["generator"] != "graph500_kronecker":
+        raise ValueError(f"unknown generator {config['generator']!r}")
+    scale, edge_factor = config["scale"], config["edge_factor"]
+    a, b, c = config["a"], config["b"], config["c"]
+    n = 1 << scale
+    m = edge_factor * n
+    gen = torch.Generator(device=device)
+    gen.manual_seed(derive_seed(config["graph_seed"], "kronecker"))
+    src = torch.zeros(m, dtype=torch.int64, device=device)
+    dst = torch.zeros(m, dtype=torch.int64, device=device)
+    ab = a + b
+    # P(dst bit | src bit): B / (A + B) after a 0, D / (C + D) after a 1
+    threshold = torch.tensor([a / ab, c / (1.0 - ab)], dtype=torch.float64,
+                             device=device)
+    for bit in range(scale):
+        r = torch.rand((2, m), generator=gen, device=device,
+                       dtype=torch.float64)
+        src_bit = r[0] > ab
+        dst_bit = r[1] > threshold[src_bit.to(torch.int64)]
+        src |= src_bit.to(torch.int64) << bit
+        dst |= dst_bit.to(torch.int64) << bit
+    perm = torch.randperm(n, generator=gen, device=device)
+    gen.manual_seed(derive_seed(seed, "order"))
+    order = torch.randperm(m, generator=gen, device=device)
+    return torch.stack([perm[src[order]], perm[dst[order]]], dim=1)
