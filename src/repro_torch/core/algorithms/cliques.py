@@ -40,7 +40,8 @@ Each call sets gauges of :data:`repro_torch.obs.metrics.REGISTRY`:
 ``clique_wedge_candidates`` (Σ over canonical edges of |{w∈N_v: w>v}|),
 ``clique_triangles`` (closing-test survivors), and for 5-cliques
 ``clique_pair_candidates`` (survivor pairs w<x of one edge) and
-``clique_quads`` (pairs that close).
+``clique_quads`` (pairs that close). Each call is traced as the span
+``clique.count`` (``k``, ``kind``), fenced on the count.
 """
 from __future__ import annotations
 
@@ -50,6 +51,7 @@ from typing import Callable, Iterator, Optional, Tuple
 import torch
 
 from ... import engine as eng
+from ...obs import trace
 from ...obs.metrics import REGISTRY
 from .. import estimators as est
 from ..exact import common_count, key_member, pieces
@@ -316,28 +318,30 @@ def four_clique_count(graph: Graph, sketch: Optional[SketchSet] = None,
     if kind not in ("exact", "bf", "kh"):
         raise ValueError(f"4-clique not supported for sketch kind {kind}")
     plan = eng.resolve_plan(plan, graph, sketch, kw)
-    csr = _csr(graph, sketch, exact_closing_test)
-    if kind == "kh":
-        def values(t):
-            return _khash_triple(graph, sketch, plan, t[:, 0], t[:, 1],
-                                 t[:, 2])
-    elif kind == "exact":
-        member = key_member(graph, csr.keys)
+    with trace.span("clique.count", k=4, kind=kind) as sp:
+        csr = _csr(graph, sketch, exact_closing_test)
+        if kind == "kh":
+            def values(t):
+                return _khash_triple(graph, sketch, plan, t[:, 0], t[:, 1],
+                                     t[:, 2])
+        elif kind == "exact":
+            member = key_member(graph, csr.keys)
 
-        def values(t):
-            return common_count(graph, t, member, _CHUNK_CANDIDATES)
-    edges = graph.edges
-    stats = _stats("clique_wedge_candidates", "clique_triangles")
-    total = torch.zeros((), dtype=torch.float64, device=graph.device)
-    if kind == "bf":
-        total = _fold_segments(sketch, plan, _triangle_segments(
-            csr, edges, _CHUNK_CANDIDATES, stats), total)
-    else:
-        for _, _, edge, w in _triangles(csr, edges, _CHUNK_CANDIDATES,
-                                        stats):
-            total = _fold(_stacked_triangles(edges, edge, w), values, total)
-    _publish(stats)
-    return (total / 4.0).to(torch.float32)
+            def values(t):
+                return common_count(graph, t, member, _CHUNK_CANDIDATES)
+        edges = graph.edges
+        stats = _stats("clique_wedge_candidates", "clique_triangles")
+        total = torch.zeros((), dtype=torch.float64, device=graph.device)
+        if kind == "bf":
+            total = _fold_segments(sketch, plan, _triangle_segments(
+                csr, edges, _CHUNK_CANDIDATES, stats), total)
+        else:
+            for _, _, edge, w in _triangles(csr, edges, _CHUNK_CANDIDATES,
+                                            stats):
+                total = _fold(_stacked_triangles(edges, edge, w), values,
+                              total)
+        _publish(stats)
+        return sp.fence((total / 4.0).to(torch.float32))
 
 
 def five_clique_count(graph: Graph, sketch: Optional[SketchSet] = None,
@@ -356,23 +360,24 @@ def five_clique_count(graph: Graph, sketch: Optional[SketchSet] = None,
     if kind not in ("exact", "bf"):
         raise ValueError(f"5-clique not supported for sketch kind {kind}")
     plan = eng.resolve_plan(plan, graph, sketch, kw)
-    csr = _csr(graph, sketch, exact_closing_test)
-    member = key_member(graph, csr.keys)
+    with trace.span("clique.count", k=5, kind=kind) as sp:
+        csr = _csr(graph, sketch, exact_closing_test)
+        member = key_member(graph, csr.keys)
 
-    def values(t):
-        return common_count(graph, t, member, _CHUNK_CANDIDATES)
-    edges = graph.edges
-    stats = _stats("clique_wedge_candidates", "clique_triangles",
-                   "clique_pair_candidates", "clique_quads")
-    total = torch.zeros((), dtype=torch.float64, device=graph.device)
-    if kind == "bf":
-        total = _fold_segments(sketch, plan, _quad_segments(
-            csr, edges, _CHUNK_CANDIDATES, stats), total)
-    else:
-        for quads in _quads(csr, edges, _CHUNK_CANDIDATES, stats):
-            total = _fold(quads, values, total)
-    _publish(stats)
-    return (total / 5.0).to(torch.float32)
+        def values(t):
+            return common_count(graph, t, member, _CHUNK_CANDIDATES)
+        edges = graph.edges
+        stats = _stats("clique_wedge_candidates", "clique_triangles",
+                       "clique_pair_candidates", "clique_quads")
+        total = torch.zeros((), dtype=torch.float64, device=graph.device)
+        if kind == "bf":
+            total = _fold_segments(sketch, plan, _quad_segments(
+                csr, edges, _CHUNK_CANDIDATES, stats), total)
+        else:
+            for quads in _quads(csr, edges, _CHUNK_CANDIDATES, stats):
+                total = _fold(quads, values, total)
+        _publish(stats)
+        return sp.fence((total / 5.0).to(torch.float32))
 
 
 __all__ = ["closed_quads", "closed_segments", "closed_triangles",

@@ -23,6 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..obs import trace
 from .graph import Graph
 from .hashing import (_GOLDEN, _MASK, hash_family, hash_u32,
                       hash_unit_interval, np_hash_u32)
@@ -400,18 +401,26 @@ class SketchSet:
 def build(graph: Graph, kind: str, storage_budget: float = 0.25,
           num_hashes: int = 2, seed: int = 0, words: int | None = None,
           k: int | None = None) -> SketchSet:
-    """Paper Listing 6 entry point: ProbGraph(g, KIND, s), on the graph's device."""
+    """Paper Listing 6 entry point: ProbGraph(g, KIND, s), on the graph's device.
+
+    Traced as the span ``sketch.build`` (``kind``, ``n``, ``width``: words
+    or k), fenced on the sketch data."""
     if kind == "bf":
         w = words if words is not None else bloom_words_for_budget(
             graph.n, graph.m, storage_budget)
-        return SketchSet(data=build_bloom(graph, w, num_hashes, seed),
-                         kind="bf", num_hashes=num_hashes, k=0, seed=seed,
-                         n=graph.n)
+        with trace.span("sketch.build", kind="bf", n=graph.n,
+                        width=w) as sp:
+            data = sp.fence(build_bloom(graph, w, num_hashes, seed))
+        return SketchSet(data=data, kind="bf", num_hashes=num_hashes, k=0,
+                         seed=seed, n=graph.n)
     if kind in ("kh", "1h", "kmv"):
         kk = k if k is not None else minhash_k_for_budget(
             graph.n, graph.m, storage_budget)
         builder = {"kh": build_khash, "1h": build_1hash,
                    "kmv": build_kmv}[kind]
-        return SketchSet(data=builder(graph, kk, seed), kind=kind,
-                         num_hashes=0, k=kk, seed=seed, n=graph.n)
+        with trace.span("sketch.build", kind=kind, n=graph.n,
+                        width=kk) as sp:
+            data = sp.fence(builder(graph, kk, seed))
+        return SketchSet(data=data, kind=kind, num_hashes=0, k=kk,
+                         seed=seed, n=graph.n)
     raise ValueError(f"unknown sketch kind: {kind}")

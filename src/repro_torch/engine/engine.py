@@ -360,8 +360,9 @@ class MiningSession:
     def edge_cardinalities(self) -> torch.Tensor:
         """Cached |N_u ∩ N_v| over graph.edges (the shared mining pass)."""
         if self._edge_cards is None:
-            with trace.span("engine.edge_cards",
-                            edges=int(self.graph.m)) as sp:
+            m = int(self.graph.m)
+            with trace.span("engine.edge_cards", edges=m,
+                            chunks=-(-m // self.plan.edge_chunk)) as sp:
                 self._edge_cards = sp.fence(edge_cardinalities(
                     self.graph, self.sketch, self.plan))
         return self._edge_cards

@@ -15,7 +15,6 @@ import torch
 
 from ..core.graph import Graph
 from ..core.sketches import SketchSet
-from ..obs import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,17 +75,15 @@ def plan_for(graph: Graph, sketch: Optional[SketchSet] = None,
     that bounds the plain path's temporaries, and on the kernel path it
     sets the tuples per launch.
     """
-    with trace.span("engine.plan_for", n=int(graph.n), m=int(graph.m),
-                    kind=sketch.kind if sketch is not None else "exact"):
-        words = (sketch.data.shape[1]
-                 if sketch is not None and sketch.kind == "bf" else 64)
-        target_words = 1 << 22
-        chunk = max(1024, min(65536, target_words // max(words, 1)))
-        use_kernel = bool(overrides.get("use_kernel",
-                                        graph.device.type == "cuda"))
-        base = EnginePlan(edge_chunk=int(chunk), use_kernel=use_kernel,
-                          degree_order=use_kernel)
-        return base.with_(**overrides)
+    words = (sketch.data.shape[1]
+             if sketch is not None and sketch.kind == "bf" else 64)
+    target_words = 1 << 22
+    chunk = max(1024, min(65536, target_words // max(words, 1)))
+    use_kernel = bool(overrides.get("use_kernel",
+                                    graph.device.type == "cuda"))
+    base = EnginePlan(edge_chunk=int(chunk), use_kernel=use_kernel,
+                      degree_order=use_kernel)
+    return base.with_(**overrides)
 
 
 # ----------------------------------------------------------------------------

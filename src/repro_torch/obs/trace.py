@@ -2,15 +2,26 @@
 
 One process-wide :class:`Tracer` records named spans into a thread-safe
 bounded ring buffer. Spans are context managers (``with span("name",
-k=v)``) or decorators (:func:`traced`) and nest through a thread-local
-stack, so the export reconstructs the call tree without global locking on
-the hot path.
+k=v)``) and nest through a thread-local stack, so the export
+reconstructs the call tree without global locking on the hot path.
+
+Clock: every span is stamped in integer epoch nanoseconds (``t0_ns``,
+``t1_ns``), the clock ``torch.profiler`` stamps its host and device
+events with. The tracer takes one anchor pair (``time.time_ns()``,
+``time.perf_counter_ns()``) when it is made and at each :meth:`Tracer.clear`
+and adds ``perf_counter_ns`` deltas to it, so durations stay monotonic
+and a span can be laid beside the device operations of a profiler trace.
+While a profiler records, each span also enters a
+``torch.profiler.record_function`` of its own name, so the profiler's
+trace shows what the program was doing between its operations.
 
 Attribution under CUDA's asynchronous launches: a span can *fence* a
-device value (``sp.fence(out)``), and span exit then synchronizes the
-value's CUDA device **before** reading the clock, so device work is
-charged to the span that launched it. Fencing only happens while tracing
-is enabled; the disabled path is a single flag check returning a shared
+device value (``sp.fence(out)``). The fence stamps the time of its call
+(``enqueue_us``: host time from the span's start until its device work
+was all enqueued), and span exit then synchronizes the value's CUDA
+device **before** reading the clock, so ``dur`` charges the device work
+to the span that launched it. Fencing only happens while tracing is
+enabled; the disabled path is a single flag check returning a shared
 no-op span, so instrumented code keeps launches asynchronous.
 
 Export is the Chrome trace-event JSON format (``ph: "X"`` complete events,
@@ -20,12 +31,16 @@ microsecond timestamps), which loads directly in Perfetto;
 from __future__ import annotations
 
 import collections
-import functools
 import json
 import os
 import threading
 import time
 from typing import Dict, List, Optional
+
+#: seconds of the interval Kineto floors a Chrome trace's base time to
+#: (``baseTimeNanoseconds``); the export uses the same rule so that it
+#: and ``prof.export_chrome_trace`` share one time base
+_TRACE_BASE_S = 7889238
 
 
 class _NullSpan:
@@ -51,17 +66,24 @@ class _NullSpan:
 _NULL_SPAN = _NullSpan()
 
 
+def _profiler_recording() -> bool:
+    """Is a ``torch.profiler`` recording in this process (about 0.2 µs)?"""
+    from torch._C._autograd import _profiler_enabled
+    return _profiler_enabled()
+
+
 class _Span:
     """One live span: records name/attrs/parent and times its ``with`` body."""
 
-    __slots__ = ("_tracer", "name", "attrs", "_fenced", "_t0", "_parent",
-                 "_depth")
+    __slots__ = ("_tracer", "name", "attrs", "_fenced", "_enqueued", "_t0",
+                 "_parent", "_depth", "_annotation")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: dict):
         self._tracer = tracer
         self.name = name
         self.attrs = attrs
         self._fenced = None
+        self._enqueued = None
 
     def set(self, **attrs):
         """Attach/overwrite span attributes from inside the body."""
@@ -70,7 +92,9 @@ class _Span:
 
     def fence(self, value):
         """Register a tensor whose CUDA device is synchronized at span exit,
-        so its device work is attributed to this span; returns the value."""
+        so its device work is attributed to this span, and stamp the time
+        its work was all enqueued; returns the value."""
+        self._enqueued = time.perf_counter_ns()
         self._fenced = value
         return value
 
@@ -79,21 +103,33 @@ class _Span:
         self._parent = stack[-1].name if stack else None
         self._depth = len(stack)
         stack.append(self)
-        self._t0 = time.perf_counter()
+        # the clock is read outside the annotation at both ends, so the
+        # profiler's event of the span lies inside [t0_ns, t1_ns]
+        self._t0 = time.perf_counter_ns()
+        self._annotation = None
+        if _profiler_recording():
+            import torch
+            self._annotation = torch.profiler.record_function(self.name)
+            self._annotation.__enter__()
         return self
 
     def __exit__(self, exc_type, exc, tb):
-        if self._fenced is not None:
-            from .._device import synchronize
-            synchronize(self._fenced)
+        try:
+            if self._fenced is not None:
+                from .._device import synchronize
+                synchronize(self._fenced)
+        finally:
             self._fenced = None
-        t1 = time.perf_counter()
-        stack = self._tracer._stack()
-        if stack and stack[-1] is self:
-            stack.pop()
-        self._tracer._record(self.name, self._t0, t1, self._parent,
-                             self._depth, self.attrs,
-                             error=exc_type is not None)
+            if self._annotation is not None:
+                self._annotation.__exit__(exc_type, exc, tb)
+                self._annotation = None
+            t1 = time.perf_counter_ns()
+            stack = self._tracer._stack()
+            if stack and stack[-1] is self:
+                stack.pop()
+            self._tracer._record(self.name, self._t0, t1, self._enqueued,
+                                 self._parent, self._depth, self.attrs,
+                                 error=exc_type is not None)
         return False
 
 
@@ -112,7 +148,7 @@ class Tracer:
             maxlen=self.capacity)
         self._lock = threading.Lock()
         self._local = threading.local()
-        self._origin = time.perf_counter()
+        self._anchor = (time.time_ns(), time.perf_counter_ns())
         self.recorded = 0          # total spans ever recorded (ring may drop)
 
     # -- hot path -----------------------------------------------------------
@@ -129,18 +165,24 @@ class Tracer:
             stack = self._local.stack = []
         return stack
 
-    def _record(self, name: str, t0: float, t1: float,
+    def _record(self, name: str, t0: int, t1: int, enqueued: Optional[int],
                 parent: Optional[str], depth: int, attrs: dict,
                 error: bool = False) -> None:
+        epoch, perf = self._anchor
+        t0_ns = epoch + (t0 - perf)
         event = {
             "name": name,
-            "ts": (t0 - self._origin) * 1e6,      # µs since tracer origin
-            "dur": (t1 - t0) * 1e6,
+            "t0_ns": t0_ns,
+            "t1_ns": t0_ns + (t1 - t0),
+            "ts": t0_ns * 1e-3,               # epoch µs
+            "dur": (t1 - t0) * 1e-3,
             "tid": threading.get_ident(),
             "parent": parent,
             "depth": depth,
             "args": attrs,
         }
+        if enqueued is not None:
+            event["enqueue_us"] = (enqueued - t0) * 1e-3
         if error:
             event["error"] = True
         with self._lock:
@@ -163,11 +205,11 @@ class Tracer:
         self.enabled = False
 
     def clear(self) -> None:
-        """Drop every recorded span and reset the time origin."""
+        """Drop every recorded span and take a new clock anchor."""
         with self._lock:
             self._events.clear()
             self.recorded = 0
-            self._origin = time.perf_counter()
+            self._anchor = (time.time_ns(), time.perf_counter_ns())
 
     # -- reads --------------------------------------------------------------
 
@@ -192,24 +234,34 @@ class Tracer:
         to ``path``.
 
         Every span becomes one complete event (``ph: "X"``) with
-        microsecond ``ts``/``dur``; span attributes plus the recorded
-        parent/depth land under ``args`` so tools (and tests) can rebuild
-        the span tree without timestamp containment heuristics.
+        microsecond ``ts``/``dur``; ``ts`` counts from
+        ``baseTimeNanoseconds``, chosen by Kineto's rule, so this export
+        and a profiler's Chrome trace of the same stretch line up. Span
+        attributes plus the recorded parent/depth (and a fenced span's
+        ``enqueue_us``) land under ``args`` so tools (and tests) can
+        rebuild the span tree without timestamp containment heuristics.
         """
+        events = self.events()
+        first_s = (events[0]["t0_ns"] if events else time.time_ns()) // 10**9
+        base = first_s // _TRACE_BASE_S * _TRACE_BASE_S * 10**9
         pid = os.getpid()
         tids: Dict[int, int] = {}
         trace_events = []
-        for ev in self.events():
+        for ev in events:
             tid = tids.setdefault(ev["tid"], len(tids))
             args = dict(ev["args"])
             args["parent"] = ev["parent"]
             args["depth"] = ev["depth"]
+            if "enqueue_us" in ev:
+                args["enqueue_us"] = round(ev["enqueue_us"], 3)
             trace_events.append({
                 "name": ev["name"], "cat": "repro_torch", "ph": "X",
-                "ts": round(ev["ts"], 3), "dur": round(ev["dur"], 3),
+                "ts": round((ev["t0_ns"] - base) * 1e-3, 3),
+                "dur": round(ev["dur"], 3),
                 "pid": pid, "tid": tid, "args": args,
             })
         doc = {"traceEvents": trace_events, "displayTimeUnit": "ms",
+               "baseTimeNanoseconds": base,
                "otherData": {"recorded": self.recorded,
                              "capacity": self.capacity}}
         if path:
@@ -232,19 +284,6 @@ def span(name: str, **attrs):
     if not TRACER.enabled:
         return _NULL_SPAN
     return _Span(TRACER, name, attrs)
-
-
-def traced(name: Optional[str] = None, **attrs):
-    """Decorator form: ``@traced("engine.refresh")`` wraps calls in a span."""
-    def deco(fn):
-        label = name or fn.__qualname__
-
-        @functools.wraps(fn)
-        def wrapper(*args, **kwargs):
-            with span(label, **attrs):
-                return fn(*args, **kwargs)
-        return wrapper
-    return deco
 
 
 def enable(capacity: Optional[int] = None) -> None:
@@ -283,4 +322,4 @@ def export(path: Optional[str] = None) -> dict:
 
 
 __all__ = ["TRACER", "Tracer", "aggregate", "clear", "disable", "enable",
-           "enabled", "events", "export", "span", "traced"]
+           "enabled", "events", "export", "span"]

@@ -30,6 +30,7 @@ from repro_torch.convert import sketch_from_numpy
 from repro_torch.core import graph as TG, sketches as TS
 from repro_torch.core.algorithms import cliques as TC
 from repro_torch.launch import mine as TM
+from repro_torch.obs import trace as TTR
 from repro_torch.obs.metrics import REGISTRY
 
 CPU = "cpu"
@@ -276,3 +277,26 @@ def test_mine_cli_cliques(capsys):
     for name in ("4clique", "cliques5"):
         assert out["algos"][name]["value"] == pytest.approx(
             want[name][0], rel=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["bf", "kh", None])
+def test_clique_counts_record_their_span(kind):
+    """With tracing on, each clique count records one ``clique.count``
+    span with its ``k`` and sketch kind, fenced on the count."""
+    _, tg = _graphs(8)
+    _, ts = _sketches(8, kind)
+    TTR.enable()
+    TTR.clear()
+    try:
+        four = TC.four_clique_count(tg, ts)
+        five = TC.five_clique_count(tg, ts) if kind != "kh" else None
+        spans = [e for e in TTR.events() if e["name"] == "clique.count"]
+    finally:
+        TTR.disable()
+        TTR.clear()
+    name = kind or "exact"
+    want = [{"k": 4, "kind": name}] + ([{"k": 5, "kind": name}]
+                                       if five is not None else [])
+    assert [e["args"] for e in spans] == want
+    assert all(0 <= e["enqueue_us"] <= e["dur"] for e in spans)
+    assert float(four) == float(TC.four_clique_count(tg, ts))

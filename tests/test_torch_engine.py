@@ -182,6 +182,39 @@ def test_spans_and_unported_paths(sessions):
     assert forked.sketch is ts.sketch and forked.plan == ts.plan
 
 
+@pytest.mark.parametrize("kind, width", [("bf", "words"), ("kh", "k")])
+def test_session_records_build_and_edge_pass_spans(kind, width):
+    """A traced CPU session records ``sketch.build`` (kind, n, width) and
+    ``engine.edge_cards`` with its chunk count, both fenced, and no span
+    around the plan."""
+    tg = TG.kronecker(8, 8, seed=1, device=CPU)
+    TTR.enable()
+    TTR.clear()
+    try:
+        sess = TE.session(tg, kind, storage_budget=1.0, device=CPU,
+                          edge_chunk=100)
+        sess.triangle_count()
+        sess.local_clustering()
+        events = TTR.events()
+    finally:
+        TTR.disable()
+        TTR.clear()
+    names = [e["name"] for e in events]
+    assert "engine.plan_for" not in names
+    assert names.count("sketch.build") == 1
+    assert names.count("engine.edge_cards") == 1
+    build = next(e for e in events if e["name"] == "sketch.build")
+    want = (sess.sketch.data.shape[1] if width == "words"
+            else sess.sketch.k)
+    assert build["args"] == {"kind": kind, "n": tg.n, "width": want}
+    edges = next(e for e in events if e["name"] == "engine.edge_cards")
+    assert sess.plan.edge_chunk == 100
+    assert edges["args"] == {"edges": tg.m, "chunks": -(-tg.m // 100)}
+    for ev in (build, edges):
+        assert 0 <= ev["enqueue_us"] <= ev["dur"]
+    assert build["t1_ns"] <= edges["t0_ns"]
+
+
 @pytest.fixture(scope="module")
 def refresh_graphs():
     """kronecker(9, 8, seed=1) before and after a delta (50 edges gone,
