@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port of ProbGraph on one GPU and check it.
 
     python3 chip_smoke.py                  # from the root of a checkout
+    python3 chip_smoke.py --fused-pass     # phase 3m alone
 
 Phases, each printed as it runs:
 
@@ -48,8 +49,10 @@ Phases, each printed as it runs:
   3. The Bloom path: a scale-21 Kronecker graph (2.1M vertices, 31.8M
      edges), ``session(g, "bf", storage_budget=1.0)`` on the card,
      ``triangle_count()`` and ``local_clustering()``. The launch counts are
-     zeroed just before and read just after; per-edge popcounts of a fixed
-     1M-edge sample and the TC are held against the plain path on the card.
+     zeroed just before and read just after (the per-edge pass: one
+     ``gather/and2/card`` launch); the pass's cardinalities equal the
+     chunked pass's in their bits; per-edge popcounts of a fixed 1M-edge
+     sample and the TC are held against the plain path on the card.
   3b. The MinHash path on the same graph: ``session(g, "kh", ...)`` with
      TC, LCC, ``jarvis_patrick("jaccard", 0.05)`` and
      ``edge_similarity("jaccard")``, then ``session(g, "1h", ...,
@@ -110,8 +113,9 @@ Phases, each printed as it runs:
      per batch the apply_delta wall time split by its spans, cards
      recomputed/carried, rows rebuilt, bytes uploaded (required below
      bytes_init / 8), the flush time and the launches of delta and flush
-     by form (counts zeroed before each, read after; both must launch the
-     AND2 gather, the flush also the dense AND2). After each batch the
+     by form (counts zeroed before each, read after; the delta's refresh
+     must launch the fused AND2 gather, ``gather/and2/card``, the flush
+     the AND2 gather and the dense AND2). After each batch the
      stream is held to a from-scratch session on ``from_edge_array`` (TC
      float32 bits, similarity, membership, local cluster, sketch rows,
      device CSR). The last batch runs under torch.profiler (device busy,
@@ -247,6 +251,20 @@ Phases, each printed as it runs:
      bytes, the memory estimate, the roofline terms, the bottleneck and
      ``useful_ratio``, which for ``qwen3_8b`` ``train_4k`` must lie in
      ``USEFUL_RANGE``.
+  3m. The Bloom per-edge pass at scale 24: the graph of the benchmark's
+     ``kron24_bf`` configuration (drawn on the card by
+     ``graphbench/generator.py``, loaded by ``from_edge_array``), a Bloom
+     session as the benchmark opens it, then the pass in its two forms in
+     turns (fused, chunked, chunked, fused): the fused pass (one
+     ``gather/and2/card`` launch) and the chunked pass (``map_edges`` over
+     the hub-ordered edges, one ``gather/and2`` a chunk, PyTorch's Eq. 2
+     ops); wall time, launches by form, peak memory above the pass's
+     start, and under torch.profiler each form's gather kernel time and
+     device busy time; the fused kernel alone (L2 flushed) beside its
+     bound by bytes (rows named, ids, the order and the float store); the
+     two results equal in their bits; the fused kernel's profiler name
+     holds ``tile_popcount_kernel`` and ``GatherSrc``. Alone: ``python3
+     chip_smoke.py --fused-pass``.
   4. Where the time goes: a warm Bloom pass (and the [T, k] gather
      kernel's time per launch in it), a Bloom sketch build, warm k-Hash
      and 1-Hash-naive passes, the scale-21 4-clique pass, the exact
@@ -285,6 +303,10 @@ T_IMPORT = time.perf_counter()
 
 #: Kronecker scale of the main path: 2^21 vertices, ~31.8M edges
 SCALE = 21
+#: phase 3m: the benchmark's Bloom configuration (scale 24) and the seed
+#: of its edge order
+FUSED_PASS_CONFIG = SRC.parent / "graphbench" / "configs" / "kron24_bf.json"
+FUSED_PASS_SEED = 1
 #: scale of the 5-clique and k-Hash 4-clique passes (phase 3c)
 CLIQUE5_SCALE = 16
 #: exact counts of kronecker(12, 16, seed=1), by brute force over sets
@@ -1262,10 +1284,11 @@ def phase_main(torch, np, TE, TG, kernels, scale: int):
     print(f"  TC={tc:.6g} mean LCC={mean_lcc:.6g} launches={launches} "
           f"by form={forms} peak device memory {peak} bytes", flush=True)
     require(sess.plan.use_kernel, "the main path must use the kernels")
-    require(launches["fused_gather_popcount"] == chunks
-            and forms.get("gather/and2") == chunks,
+    require(launches["fused_gather_popcount"] == 1
+            and forms == {"gather/and2/card": 1},
             f"gather kernel launched {launches['fused_gather_popcount']} "
-            f"times ({forms}), expected one AND2 launch per chunk ({chunks})")
+            f"times ({forms}), expected one gather/and2/card launch for the "
+            f"pass")
     require(math.isfinite(tc) and tc > 0, f"TC {tc} not finite and positive")
     require(lcc.shape == (g.n,) and bool(torch.isfinite(lcc).all()),
             "LCC must be finite float32[n]")
@@ -1277,6 +1300,15 @@ def phase_main(torch, np, TE, TG, kernels, scale: int):
     warm_pass_s = time.perf_counter() - t0
     print(f"  warm pass (TC, second session over the same sketch) "
           f"{warm_pass_s:.3f} s = {g.m / warm_pass_s:.4g} edges/s", flush=True)
+    chunked = chunked_edge_pass(TE, g, sess.sketch, sess.plan)
+    cards = sess.edge_cardinalities()
+    require(torch.equal(cards.view(torch.int32), chunked.view(torch.int32)),
+            f"fused per-edge pass: {int((cards != chunked).sum())} of {g.m} "
+            "cardinalities differ in their bits from the chunked pass")
+    del chunked
+    print(f"  fused per-edge pass bit-identical to the chunked pass "
+          f"({chunks} chunks of the gather AND2 and PyTorch's Eq. 2)",
+          flush=True)
     plain_plan = sess.plan.with_(use_kernel=False)
     edges = g.edges[edge_sample(torch, np, g)]
     got = TE.tuple_cardinality_ones(sess.sketch, edges, sess.plan)
@@ -1299,6 +1331,16 @@ def phase_main(torch, np, TE, TG, kernels, scale: int):
                 warm_pass_s=warm_pass_s,
                 plain_pass_s=plain_pass_s, tc=tc, mean_lcc=mean_lcc,
                 peak_bytes=peak, words=words)
+
+
+def chunked_edge_pass(TE, g, sketch, plan):
+    """The Bloom per-edge pass as chunks: the gather AND2 on each
+    ``plan.edge_chunk`` edges in hub order, PyTorch's Eq. 2 ops on its
+    counts, the result unsorted (what ``edge_cardinalities`` ran before
+    the fused store)."""
+    edges_s, inv = TE.order_edges_by_hub(g, g.edges)
+    return TE.map_edges(edges_s, TE.pair_cardinality_fn(g, sketch, plan),
+                        plan)[inv]
 
 
 def edge_sample(torch, np, g):
@@ -1484,6 +1526,118 @@ def phase_real_chunks(torch, kernels, g, sess, kh_sess) -> dict:
     del flush
     torch.cuda.empty_cache()
     return timing
+
+
+def phase_fused_pass(torch, TE, kernels) -> dict:
+    """Phase 3m: the Bloom per-edge pass at scale 24, fused against
+    chunked (see the module docstring); returns the kernel table's record
+    of the fused form."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, str(SRC.parent))
+    from graphbench import generator
+    from repro_torch.core.graph import from_edge_array
+
+    config = json.loads(FUSED_PASS_CONFIG.read_text())
+    t0 = time.perf_counter()
+    raw = generator.kronecker_edges(config, FUSED_PASS_SEED, "cuda")
+    raw_host = raw.cpu().numpy()
+    del raw
+    g = from_edge_array(1 << config["scale"], raw_host, device="cuda")
+    del raw_host
+    sess = TE.session(g, config["sketch"],
+                      storage_budget=config["storage_budget"],
+                      num_hashes=config["num_hashes"], device="cuda")
+    sk, plan, fe = sess.sketch, sess.plan, kernels.fused_expr
+    torch.cuda.synchronize()
+    m, words = g.m, sk.data.shape[1]
+    chunks = math.ceil(m / plan.edge_chunk)
+    require(TE.fuses_edge_pass(sk, plan, g.edges.device),
+            "the benchmark's Bloom session must take the fused pass")
+    print(f"phase 3m: {FUSED_PASS_CONFIG.name}: n={g.n} m={m} words={words} "
+          f"b={sk.num_hashes}; graph and sketch in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    forms_of = {"fused": lambda: TE.edge_cardinalities(g, sk, plan),
+                "chunked": lambda: chunked_edge_pass(TE, g, sk, plan)}
+    stats = {label: dict(wall_s=[]) for label in forms_of}
+    out = {}
+    for label in ("fused", "chunked", "chunked", "fused",
+                  "fused", "chunked"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        out[label] = forms_of[label]()
+        torch.cuda.synchronize()
+        stats[label]["wall_s"].append(time.perf_counter() - t)
+        stats[label]["forms"] = dict(fe.FORM_LAUNCHES)
+        stats[label]["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    fused, chunked = out["fused"], out["chunked"]
+    require(torch.equal(fused.view(torch.int32), chunked.view(torch.int32)),
+            f"scale-24 fused pass: {int((fused != chunked).sum())} of {m} "
+            "cardinalities differ in their bits from the chunked pass")
+    require(stats["fused"]["forms"] == {"gather/and2/card": 1}
+            and stats["chunked"]["forms"] == {"gather/and2": chunks},
+            f"launches by form: fused {stats['fused']['forms']}, chunked "
+            f"{stats['chunked']['forms']} (expected 1 and {chunks})")
+    del out, fused, chunked
+    for label, fn in forms_of.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        tile = [e for e in device if "tile_popcount_kernel" in e.key]
+        stats[label].update(
+            busy_ms=sum(e.self_device_time_total for e in device) / 1e3,
+            kernel_ms=sum(e.self_device_time_total for e in tile) / 1e3,
+            kernel_launches=sum(e.count for e in tile),
+            device_ops=sum(e.count for e in device),
+            kernel_names=sorted({e.key for e in tile}))
+    names = stats["fused"]["kernel_names"]
+    require(len(names) == 1 and "GatherSrc" in names[0]
+            and "CardStore" in names[0],
+            f"the fused pass's gather kernel under the profiler: {names}")
+
+    order = TE.hub_order(g, g.edges)
+    call = lambda: fe.fused_gather_cardinality(sk.data, g.edges,
+                                               sk.num_hashes, order=order)
+    ms = time_ms(call, make_flush(torch), reps=5, warmup=1)
+    rows = int((g.deg > 0).sum())
+    nbytes = rows * words * 4 + m * (8 + 8 + 4)
+    bound, by = bound_ms(nbytes, m * words * 3)
+    for label, st in stats.items():
+        walls = sorted(st["wall_s"])
+        print(f"  {label} pass: wall {walls[len(walls) // 2]:.4f} s "
+              f"(runs {', '.join(f'{w:.4f}' for w in st['wall_s'])}), "
+              f"launches {st['forms']}, peak {st['peak_bytes']} bytes above "
+              f"its start; profiled: {st['device_ops']} device ops, busy "
+              f"{st['busy_ms']:.3f} ms, gather kernel {st['kernel_ms']:.3f} "
+              f"ms in {st['kernel_launches']} launches", flush=True)
+    print(f"  fused kernel alone (order precomputed, L2 flushed): {ms:.3f} "
+          f"ms; bound {bound:.3f} ms by {by} ({nbytes} bytes: {rows} rows "
+          f"named, ids, order, float store), {bound / ms:.1%}; equal bits "
+          f"to the chunked pass; profiler name {names[0][:120]}", flush=True)
+    del sess, sk, g, order
+    torch.cuda.empty_cache()
+    walls = {label: sorted(st["wall_s"])[1] for label, st in stats.items()}
+    return {"fused_gather_cardinality": dict(
+        ms=ms, plain_ms=None, bound_ms=bound, bound_by=by, bytes=nbytes,
+        max_abs_err=0, pass_s=walls["fused"],
+        pass_kernel_ms=stats["fused"]["kernel_ms"],
+        pass_launches=stats["fused"]["kernel_launches"],
+        chunked_pass_s=walls["chunked"],
+        chunked_kernel_ms=stats["chunked"]["kernel_ms"],
+        chunked_launches=stats["chunked"]["kernel_launches"],
+        library_note=NO_LIBRARY["popcount"],
+        timed_at=(f"the Bloom per-edge pass of {FUSED_PASS_CONFIG.name} "
+                  f"(scale {config['scale']}): T={m}, {rows} rows named, "
+                  f"W={words}, b={config['num_hashes']}, hub order"))}
 
 
 def wedge_candidates(np, g) -> int:
@@ -2552,12 +2706,13 @@ def phase_stream(torch, np, kernels, g):
     for key in ("gather/and2", "rows/and2"):
         require(all(r["flush_launches"].get(key, 0) > 0 for r in rows),
                 f"a stream flush launched no {key} kernel")
-    require(all(r["delta_launches"].get("gather/and2", 0) > 0 for r in rows),
-            "a stream delta's refresh launched no gather/and2 kernel")
+    require(all(r["delta_launches"].get("gather/and2/card", 0) > 0
+                for r in rows),
+            "a stream delta's refresh launched no gather/and2/card kernel")
     launches = {key: sum(r["delta_launches"].get(key, 0)
                          + r["flush_launches"].get(key, 0) for r in rows)
                 for key in ("fused_gather_popcount", "fused_rows_popcount",
-                            "gather/and2", "rows/and2")}
+                            "gather/and2", "gather/and2/card", "rows/and2")}
     device = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
     busy_s = sum(e.self_device_time_total for e in device) / 1e6
@@ -2936,7 +3091,8 @@ def phase_linkpred(torch, np, TG, kernels, g) -> dict:
                                          cand, kind)
             line += (f"; scoring {cand.shape[0]} candidates {score_s:.3f} s, "
                      f"kernel counts and scores equal the plain path's")
-        key = {"bf": "gather/and2", "kh": "khash_match_pairs/gather"}.get(
+        key = {"bf": "gather/and2/card",
+               "kh": "khash_match_pairs/gather"}.get(
             kind)
         require(key is None or launches.get(key, 0) > 0,
                 f"{label} link prediction launched no {key}")
@@ -4982,6 +5138,7 @@ def main() -> None:
     sharded = phase_sharded(torch, TE, kernels, g)
     del g
     torch.cuda.empty_cache()
+    timing.update(phase_fused_pass(torch, TE, kernels))
     model = phase_model(torch, np, kernels, ref)
     timing["flash_attention_wgmma"]["model_ms"] = model["attn_ms"]
     archs = phase_archs(torch, np, kernels, ref)
@@ -5092,6 +5249,7 @@ def main() -> None:
                    "fused_rows_popcount": sl["fused_rows_popcount"],
                    "bf_intersect_pairs": sl["rows/and2"],
                    "bf_edge_intersect": sl["gather/and2"],
+                   "fused_gather_cardinality": sl["gather/and2/card"],
                    "khash_match_gather": sl["khash_match_pairs/gather"]}
     rows = [
         ("fused_gather_popcount", fused_src,
@@ -5136,6 +5294,9 @@ def main() -> None:
         ("fused_rows_popcount[sweep]", fused_src,
          "src/repro/kernels/fused_expr.py:129",
          lc["bf"]["forms"].get("rows/and2", 0)),
+        ("fused_gather_cardinality", fused_src,
+         "src/repro/kernels/bf_intersect.py:168",
+         main_path["forms"].get("gather/and2/card", 0)),
     ]
     # phase 3g: the adaptive pass's dense AND2 launches and link
     # prediction's (scale 21, Bloom and k-Hash scorers; scale 16, Bloom)
@@ -5144,8 +5305,11 @@ def main() -> None:
                      "bf_intersect_pairs": adaptive["launches"]}
     lp_gather = (lpl["bf"].get("gather/and2", 0)
                  + lp["launches16"].get("gather/and2", 0))
-    linkpred_rows = {"fused_gather_popcount": lp_gather,
+    lp_card = (lpl["bf"].get("gather/and2/card", 0)
+               + lp["launches16"].get("gather/and2/card", 0))
+    linkpred_rows = {"fused_gather_popcount": lp_gather + lp_card,
                      "bf_edge_intersect": lp_gather,
+                     "fused_gather_cardinality": lp_card,
                      "khash_match_gather": lpl["kh"].get(
                          "khash_match_pairs/gather", 0)}
     # phase 3h: mine() and the sharded fold at world size 1 (AND2 gather)
@@ -5207,7 +5371,9 @@ def main() -> None:
            if key in ("kernel", "gather_ms", "bound_ms_tuples", "model_ms",
                       "old_route_ms", "warm_ms", "real_rows", "deep_ms",
                       "deep_warm_ms", "deep_real_rows", "khash_gather_ms",
-                      "khash_gather_warm_ms")
+                      "khash_gather_warm_ms", "pass_s", "pass_kernel_ms",
+                      "pass_launches", "chunked_pass_s",
+                      "chunked_kernel_ms", "chunked_launches")
            or key.startswith(("clique_", "train_", "fp32_"))},
     } for name, source, replaces, launches in rows]
     print(smi)
@@ -5217,8 +5383,32 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
+def fused_pass_main() -> None:
+    """``--fused-pass``: the kernels' build and phase 3m alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("torch.cuda.is_available() is False: chip_smoke.py "
+                         "needs an NVIDIA GPU")
+    sys.path.insert(0, str(SRC))
+    from repro_torch import engine as TE
+    from repro_torch import kernels
+    from repro_torch.kernels import _build
+
+    print(smi_line(), flush=True)
+    _build.build(["fused_expr"])
+    record = phase_fused_pass(torch, TE, kernels)
+    print(json.dumps(record))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--local-shard":
         local_shard_main(sys.argv[2])
+        raise SystemExit(0)
+    if sys.argv[1:] == ["--fused-pass"]:
+        fused_pass_main()
         raise SystemExit(0)
     main()

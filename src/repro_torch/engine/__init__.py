@@ -12,6 +12,7 @@ from .engine import (
     Footprint,
     MiningSession,
     edge_cardinalities,
+    fuses_edge_pass,
     pair_cardinality_fn,
     resolve_plan,
     segment_cardinality_ones,
@@ -24,13 +25,14 @@ from .engine import (
     wedge_triple_ones,
 )
 from .plan import (EnginePlan, edge_shard, fold_edge_shard, fold_edges,
-                   fold_edges_masked, map_edges, order_edges_by_hub, plan_for,
-                   pow2_bucket)
+                   fold_edges_masked, hub_order, map_edges,
+                   order_edges_by_hub, plan_for, pow2_bucket)
 
 __all__ = [
     "DeviceCarry", "EnginePlan", "Footprint", "MiningSession", "api",
     "edge_cardinalities", "edge_shard", "fold_edge_shard",
-    "fold_edges", "fold_edges_masked", "map_edges", "order_edges_by_hub",
+    "fold_edges", "fold_edges_masked", "fuses_edge_pass", "hub_order",
+    "map_edges", "order_edges_by_hub",
     "pair_cardinality_fn", "plan_for", "pow2_bucket", "resolve_plan",
     "segment_cardinality_ones", "session", "setexpr",
     "shard_edge_cardinalities", "sum_edge_cardinalities",

@@ -2,11 +2,12 @@
 
   * ``pair_cardinality_fn`` — the |N_u ∩ N_v| provider, plan-dispatched
     between the CUDA popcount kernels and the plain PyTorch path.
-  * ``edge_cardinalities`` / ``sum_edge_cardinalities`` — chunked per-edge
-    map / fold over an edge list with the degree-ordered layout; the fold
-    optionally split over the ranks of the active mesh (``shard_edges``,
-    ``repro_torch.distributed.sharding`` rules), each rank's part being
-    ``shard_edge_cardinalities``.
+  * ``edge_cardinalities`` / ``sum_edge_cardinalities`` — per-edge map /
+    fold over an edge list with the degree-ordered layout, in chunks (the
+    Bloom AND map on CUDA: one kernel launch, ``fuses_edge_pass``); the
+    fold optionally split over the ranks of the active mesh
+    (``shard_edges``, ``repro_torch.distributed.sharding`` rules), each
+    rank's part being ``shard_edge_cardinalities``.
   * ``tuple_cardinality_ones`` / ``triple_cardinality_ones`` — the k-way
     popcount provider over row-index tuples, compiled from the k-way AND
     set expression (``repro_torch.engine.setexpr``);
@@ -39,8 +40,8 @@ from ..distributed import sharding
 from ..kernels import fused_expr, ref
 from ..obs import trace
 from . import setexpr
-from .plan import (EnginePlan, fold_edge_shard, fold_edges, map_edges,
-                   order_edges_by_hub, plan_for)
+from .plan import (EnginePlan, fold_edge_shard, fold_edges, hub_order,
+                   map_edges, order_edges_by_hub, plan_for)
 
 _PLAN_KWARGS = ("edge_chunk", "block_e", "block_w", "use_kernel",
                 "degree_order", "estimator", "variant", "shard_edges",
@@ -68,17 +69,36 @@ def pair_cardinality_fn(graph: Graph, sketch: Optional[SketchSet],
         estimator=plan.estimator, block_e=plan.block_e, block_w=plan.block_w)
 
 
+def fuses_edge_pass(sketch: Optional[SketchSet], plan: EnginePlan,
+                    device: torch.device) -> bool:
+    """Whether :func:`edge_cardinalities` over edges on ``device`` runs as
+    one launch of the AND2 gather kernel with Eq. 2 in its store
+    (``fused_expr.fused_gather_cardinality``): a Bloom sketch under the AND
+    estimator, ``plan.use_kernel``, a CUDA device. Every other pass keeps
+    the chunked :func:`~repro_torch.engine.plan.map_edges`."""
+    return (sketch is not None and sketch.kind == "bf"
+            and (plan.estimator or sketch.kind) == "bf"
+            and plan.use_kernel and torch.device(device).type == "cuda")
+
+
 def edge_cardinalities(graph: Graph, sketch: Optional[SketchSet],
                        plan: EnginePlan,
                        edges: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-edge |N_u ∩ N_v| (float32[m]) in the caller's edge order.
 
     The degree-ordered layout is applied internally (and inverted on the
-    way out) so the kernel sees hub-clustered tuples.
+    way out) so the kernel sees hub-clustered tuples; the fused pass
+    (:func:`fuses_edge_pass`) visits the edges in hub order and stores each
+    cardinality at its edge's place.
     """
-    fn = pair_cardinality_fn(graph, sketch, plan)
     edges = graph.edges if edges is None else edges
-    if plan.degree_order and edges.shape[0] > 1:
+    hubs = plan.degree_order and edges.shape[0] > 1
+    if fuses_edge_pass(sketch, plan, edges.device):
+        return fused_expr.fused_gather_cardinality(
+            sketch.data, edges.to(torch.int32), sketch.num_hashes,
+            order=hub_order(graph, edges) if hubs else None)
+    fn = pair_cardinality_fn(graph, sketch, plan)
+    if hubs:
         edges_s, inv = order_edges_by_hub(graph, edges)
         return map_edges(edges_s, fn, plan)[inv]
     return map_edges(edges, fn, plan)
@@ -90,7 +110,7 @@ def _fold_inputs(graph: Graph, sketch: Optional[SketchSet],
     fn = card_fn or pair_cardinality_fn(graph, sketch, plan)
     edges = graph.edges
     if plan.degree_order and edges.shape[0] > 1:
-        edges, _ = order_edges_by_hub(graph, edges)   # sums need no unsort
+        edges = edges[hub_order(graph, edges)]   # sums need no unsort
 
     def chunk(pairs, mask):
         """Masked partial sum of one edge chunk's cardinalities."""
@@ -361,8 +381,13 @@ class MiningSession:
         """Cached |N_u ∩ N_v| over graph.edges (the shared mining pass)."""
         if self._edge_cards is None:
             m = int(self.graph.m)
+            # ``chunks`` counts edges in units of ``edge_chunk`` on both
+            # paths; the fused pass launches once
             with trace.span("engine.edge_cards", edges=m,
-                            chunks=-(-m // self.plan.edge_chunk)) as sp:
+                            chunks=-(-m // self.plan.edge_chunk),
+                            fused=fuses_edge_pass(self.sketch, self.plan,
+                                                  self.graph.edges.device)
+                            ) as sp:
                 self._edge_cards = sp.fence(edge_cardinalities(
                     self.graph, self.sketch, self.plan))
         return self._edge_cards

@@ -94,14 +94,13 @@ def _stable_argsort(x: torch.Tensor) -> torch.Tensor:
     return torch.sort(x, stable=True).indices
 
 
-def order_edges_by_hub(graph: Graph, edges: torch.Tensor
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Reorder edges so consecutive tuples revisit hub rows.
+def hub_order(graph: Graph, edges: torch.Tensor) -> torch.Tensor:
+    """The permutation (int64[m]) that lists edges so consecutive tuples
+    revisit hub rows.
 
     Sort key is (hub degree bucket desc, hub id), ties in input order: the
     permutation of the reference's ``lexsort((hub, -bucket))``, built from
-    stable sorts applied last key first. Returns (edges_sorted, inv) with
-    ``values_sorted[inv] == values_original_order``.
+    stable sorts applied last key first.
     """
     du = graph.deg[edges[:, 0].long()]
     dv = graph.deg[edges[:, 1].long()]
@@ -111,7 +110,15 @@ def order_edges_by_hub(graph: Graph, edges: torch.Tensor
     # hub-heavy edges lead the schedule
     bucket = torch.frexp(torch.clamp(hub_deg, min=1).to(torch.float32))[1]
     perm = _stable_argsort(hub)
-    perm = perm[_stable_argsort(-bucket[perm])]
+    return perm[_stable_argsort(-bucket[perm])]
+
+
+def order_edges_by_hub(graph: Graph, edges: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Edges in :func:`hub_order`, and the inverse permutation: returns
+    (edges_sorted, inv) with ``values_sorted[inv] ==
+    values_original_order``."""
+    perm = hub_order(graph, edges)
     inv = torch.empty_like(perm)
     inv[perm] = torch.arange(perm.numel(), device=perm.device)
     return edges[perm], inv

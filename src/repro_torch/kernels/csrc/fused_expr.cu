@@ -14,6 +14,10 @@
 //     fused_gather_popcount and bf_intersect._edge3_impl, for tuples that
 //     come in segments sharing their first k-1 rows (the clique launch);
 //     its own note is above its kernel, below.
+//   * pg_fused_gather_cardinality <- the Bloom per-edge pass of
+//     engine.edge_cardinalities (bf_intersect._edge_impl, then Eq. 2 in
+//     jnp): the AND2 gather form with the estimator in its store, over a
+//     whole pass in one launch; its note is above CardStore, below.
 //
 // What bounds the first two: memory. A tuple reads k rows of W words (and,
 // gathered, its k ids) and writes one int32, for about k + 1 integer
@@ -212,10 +216,59 @@ __device__ __forceinline__ VT eval_expr(const Expr& e, VT (&x)[NP]) {
 
 #undef PG_OPS
 
-template <class Src, int K, int V>
+// The store side of the kernel: where tile position t reads its tuple
+// (source) and what it writes (put). CountStore writes the popcount in
+// place.
+struct CountStore {
+  int32_t* out;                 // [T]
+  __device__ __forceinline__ long long source(long long t) const { return t; }
+  __device__ __forceinline__ void put(long long t, long long, int ones) const {
+    out[t] = ones;
+  }
+};
+
+// CardStore: the Bloom per-edge pass (pg_fused_gather_cardinality). Tile
+// position t reads pair order[t] (the engine's hub order, so consecutive
+// tuples re-read hub rows; pair t without an order) and writes Eq. 2 of
+// its popcount at the pair's own place:
+//
+//   out[order[t]] = -(B / b) * log1p(-min(ones, B - 1) / B)
+//
+// with the float32 operations, in the order, of PyTorch's CUDA ops in
+// core/estimators.py bf_intersection_and_from_ones: the count converted and
+// clamped, negated, multiplied by the reciprocal 1 / B that PyTorch's true
+// division by a host scalar takes (rounded to float on the host), log1pf,
+// then multiplied by -(B / b) rounded to float on the host. __fmul_rn keeps
+// nvcc from contracting either product into log1pf's adds, so each output
+// equals the chunked path's bit for bit.
+//
+// What this removes: the chunked pass launched this body once per 65,536
+// edges, then six elementwise ops and a copy per chunk, around an
+// int32[m] count, the inverse permutation and its gather (a scale-24
+// graph: 3,974 chunks, ~0.84 s of host time against ~90 ms of device work
+// on an H100). One launch of ceil(m / 64) blocks takes any pass the grid
+// holds (2^31 - 1 blocks), with 64-bit positions. Bound: bytes, as the
+// body's note says, plus per pair its order entry (8 B) and one scattered
+// 4-byte store: 20 B a pair beside its share of the rows.
+struct CardStore {
+  float* out;                   // [T], in pair order
+  const long long* order;       // [T], a permutation of 0..T-1, or null
+  float cap;                    // B - 1
+  float inv_bits;               // 1 / B
+  float scale;                  // -(B / b)
+  __device__ __forceinline__ long long source(long long t) const {
+    return order ? __ldg(order + t) : t;
+  }
+  __device__ __forceinline__ void put(long long, long long at,
+                                      int ones) const {
+    const float x = fminf((float)ones, cap);
+    out[at] = __fmul_rn(log1pf(__fmul_rn(-x, inv_bits)), scale);
+  }
+};
+
+template <class Src, int K, int V, class Store>
 __global__ void __launch_bounds__(kTileWarps * 32)
-tile_popcount_kernel(Src src, Expr e, int W, int group_log2,
-                     int32_t* __restrict__ out) {
+tile_popcount_kernel(Src src, Expr e, int W, int group_log2, Store store) {
   using VT = typename VecOf<V>::T;
   constexpr int NP = K > 0 ? K : kMaxLeaves;       // operand slots
   constexpr int B = K > 0 ? kTileBatch : kProgBatch;
@@ -233,21 +286,22 @@ tile_popcount_kernel(Src src, Expr e, int W, int group_log2,
   if (b >= src.T) return;                    // whole warp: warp-uniform
   const int nvalid = (int)min((long long)kTileTuples, src.T - b);
   const bool live = lane < nvalid;
+  // the tuple lane j reads and stores: b + j, or its place in an order
+  const long long at = live ? store.source(b + lane) : 0;
 
-  // lane j: the row ids of tuple b + j, one per operand (gather form)
+  // lane j: the row ids of its tuple, one per operand (gather form)
   int id[NP];
 #pragma unroll
   for (int p = 0; p < NP; ++p) id[p] = 0;
   if constexpr (Src::kGather) {
     if (src.pair_ids) {
       int2 two = make_int2(0, 0);
-      if (live)
-        two = __ldg(reinterpret_cast<const int2*>(src.tuples) + b + lane);
+      if (live) two = __ldg(reinterpret_cast<const int2*>(src.tuples) + at);
 #pragma unroll
       for (int p = 0; p < NP; ++p)
         if (p < np) id[p] = clamp_last(e.col[p] ? two.y : two.x, src.last);
     } else {
-      const int32_t* tup = src.tuples + (b + lane) * src.cols;
+      const int32_t* tup = src.tuples + at * src.cols;
 #pragma unroll
       for (int p = 0; p < NP; ++p)
         if (p < np && live) id[p] = clamp_last(__ldg(tup + e.col[p]),
@@ -306,35 +360,35 @@ tile_popcount_kernel(Src src, Expr e, int W, int group_log2,
       if ((lane >> (5 - group_log2)) == j0 + j) res = (int)mine;
     }
   }
-  if (live) out[b + lane] = res;
+  if (live) store.put(b + lane, at, res);
 }
 
-template <class Src, int K, int V>
-int launch_tile(const Src& src, const Expr& e, int W, int32_t* out,
+template <class Src, int K, int V, class Store>
+int launch_tile(const Src& src, const Expr& e, int W, const Store& store,
                 cudaStream_t stream) {
   const long long per_block = (long long)kTileWarps * kTileTuples;
   const long long blocks = (src.T + per_block - 1) / per_block;
   if (blocks < 1 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  tile_popcount_kernel<Src, K, V><<<(unsigned)blocks, kTileWarps * 32, 0,
-                                    stream>>>(
-      src, e, W, group_log2_for(W / V), out);
+  tile_popcount_kernel<Src, K, V, Store><<<(unsigned)blocks, kTileWarps * 32,
+                                           0, stream>>>(
+      src, e, W, group_log2_for(W / V), store);
   return (int)cudaGetLastError();
 }
 
-template <class Src, int K>
-int launch_tile_v(int V, const Src& src, const Expr& e, int W, int32_t* out,
-                  cudaStream_t stream) {
+template <class Src, int K, class Store>
+int launch_tile_v(int V, const Src& src, const Expr& e, int W,
+                  const Store& store, cudaStream_t stream) {
   switch (V) {
-    case 4: return launch_tile<Src, K, 4>(src, e, W, out, stream);
-    case 2: return launch_tile<Src, K, 2>(src, e, W, out, stream);
-    default: return launch_tile<Src, K, 1>(src, e, W, out, stream);
+    case 4: return launch_tile<Src, K, 4>(src, e, W, store, stream);
+    case 2: return launch_tile<Src, K, 2>(src, e, W, store, stream);
+    default: return launch_tile<Src, K, 1>(src, e, W, store, stream);
   }
 }
 
 template <class Src>
 int launch_tile_k(int and_k, int V, const Src& src, const Expr& e, int W,
                   void* out, void* stream) {
-  int32_t* o = static_cast<int32_t*>(out);
+  const CountStore o{static_cast<int32_t*>(out)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (and_k) {
     case 2: return launch_tile_v<Src, 2>(V, src, e, W, o, s);
@@ -730,6 +784,31 @@ int pg_fused_gather_popcount(const void* data, long long n, int W,
       T, tuple_cols, (int)(n - 1 < INT_MAX ? n - 1 : INT_MAX),
       tuple_cols == 2 && reinterpret_cast<uintptr_t>(tuples) % 8 == 0};
   return launch_tile_k(and_k, vector_words(W, data), src, e, W, out, stream);
+}
+
+// Eq. 2 of popcount(B_u & B_v) for every pair (u, v) of pairs int32[T, 2],
+// into out float32[T] in pair order, the pairs visited in the order
+// `order` (int64[T], a permutation of 0..T-1; null: in place). cap,
+// inv_bits and scale are B - 1, 1 / B and -(B / b) as float32 (CardStore).
+// Ids are clamped to [0, n), as everywhere in this file.
+int pg_fused_gather_cardinality(const void* data, long long n, int W,
+                                const void* pairs, long long T,
+                                const void* order, float cap, float inv_bits,
+                                float scale, void* out, void* stream) {
+  if (n < 1 || W < 1 || T < 1) return (int)cudaErrorInvalidValue;
+  Expr e{};
+  e.n_push = 2;
+  e.col[1] = 1;
+  e.code[0] = kAnd << 6 | 1;
+  const GatherSrc src{
+      static_cast<const uint32_t*>(data), static_cast<const int32_t*>(pairs),
+      T, 2, (int)(n - 1 < INT_MAX ? n - 1 : INT_MAX),
+      reinterpret_cast<uintptr_t>(pairs) % 8 == 0};
+  const CardStore store{static_cast<float*>(out),
+                        static_cast<const long long*>(order), cap, inv_bits,
+                        scale};
+  return launch_tile_v<GatherSrc, 2>(vector_words(W, data), src, e, W, store,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 int pg_fused_rows_popcount(const void* const* rows, int k, long long E, int W,

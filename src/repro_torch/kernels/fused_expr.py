@@ -8,6 +8,9 @@ Three forms, the port of ``repro.kernels.fused_expr`` (see
   * :func:`fused_rows_popcount` — the same over dense int32[E, W] operands.
     Both run one kernel body, in tiles of tuples per warp, with two row
     sources (:func:`tile_layout` reports its layout).
+    :func:`fused_gather_cardinality` is the gather AND2 with the Bloom AND
+    estimator (Eq. 2) in its store: the engine's per-edge pass in one
+    launch.
   * :func:`fused_segment_popcount` — the k-way AND (k = 2..4) of the gather
     form for tuples that come in segments sharing their first k-1 rows,
     which the kernel reads once per segment (the clique passes' launch).
@@ -19,13 +22,15 @@ or launch failure raises; nothing falls back. Each launch adds one to
 one to :data:`FORM_LAUNCHES` under its form and program (``"gather/and2"``
 is the reference's 2-way gather kernel ``bf_edge_intersect``,
 ``"rows/and3"`` its dense ``bf_intersect3_pairs``, ``".../program"`` any
-other expression, ``"segment/and3"`` a segmented 3-way AND).
+other expression, ``"segment/and3"`` a segmented 3-way AND,
+``"gather/and2/card"`` the gather AND2 with Eq. 2 in its store).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from . import _build, ref
@@ -70,6 +75,11 @@ def _lib() -> ctypes.CDLL:
             _VOIDP, ctypes.c_longlong, ctypes.c_int, _VOIDP,
             ctypes.c_longlong, ctypes.c_int, _VOIDP, _VOIDP, _VOIDP]
         lib.pg_fused_gather_popcount.restype = ctypes.c_int
+        lib.pg_fused_gather_cardinality.argtypes = [
+            _VOIDP, ctypes.c_longlong, ctypes.c_int, _VOIDP,
+            ctypes.c_longlong, _VOIDP, ctypes.c_float, ctypes.c_float,
+            ctypes.c_float, _VOIDP, _VOIDP]
+        lib.pg_fused_gather_cardinality.restype = ctypes.c_int
         lib.pg_fused_rows_popcount.argtypes = [
             _VOIDP, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _VOIDP,
             _VOIDP, _VOIDP]
@@ -144,6 +154,75 @@ def fused_gather_popcount(data: torch.Tensor, tuples: torch.Tensor,
             torch.cuda.current_stream(data.device).cuda_stream)
     _check(lib, rc, "fused_gather_popcount")
     _count("fused_gather_popcount", _form("gather", program))
+    return out
+
+
+def _eq2_constants(total_bits: int, num_hashes: int):
+    """(B - 1, 1 / B, -(B / b)) as float32, rounded as PyTorch rounds the
+    host scalars of ``bf_intersection_and_from_ones`` on the card: true
+    division by a host scalar multiplies by its float reciprocal, and a
+    Python float scalar is rounded to float once."""
+    return (np.float32(total_bits - 1),
+            np.float32(1.0) / np.float32(total_bits),
+            np.float32(-(total_bits / num_hashes)))
+
+
+def fused_gather_cardinality(data: torch.Tensor, pairs: torch.Tensor,
+                             num_hashes: int,
+                             order: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """|X∩Y|_AND (Eq. 2) of the two rows each pair names: float32[T].
+
+    One launch of the gather AND2 with the estimator in its store (form
+    ``gather/and2/card``); each output equals, bit for bit,
+    ``bf_intersection_and_from_ones(fused_gather_popcount(data, pairs,
+    and2), 32 W, num_hashes)`` computed by PyTorch's ops on the same device.
+
+    Args:
+      data:       int32[n, W] Bloom sketch matrix (uint32 bit patterns).
+      pairs:      int32[T, 2] row ids; ids outside [0, n) are clamped to
+                  the nearest row.
+      num_hashes: b, the sketch's hash functions.
+      order:      optional int64[T] permutation of ``range(T)``: the order
+                  in which the kernel visits the pairs (hub order keeps hub
+                  rows in L2). The output is in pair order whatever it is;
+                  it is not checked, since that would read the device.
+    """
+    if pairs.dtype != torch.int32 or pairs.dim() != 2 or pairs.shape[1] != 2:
+        raise ValueError(f"pairs must be int32[T, 2], got "
+                         f"{pairs.dtype}{list(pairs.shape)}")
+    t = pairs.shape[0]
+    if order is not None and (order.dtype != torch.int64
+                              or order.shape != (t,)):
+        raise ValueError(f"order must be int64[{t}], got "
+                         f"{order.dtype}{list(order.shape)}")
+    if not data.is_cuda:
+        if pairs.is_cuda or (order is not None and order.is_cuda):
+            raise ValueError("data is on the CPU but pairs or order on CUDA")
+        return ref.fused_gather_cardinality(data, pairs, num_hashes)
+    _check_words(data, "data", data.device)
+    for x, what in ((pairs, "pairs"), (order, "order")):
+        if x is not None and x.device != data.device:
+            raise ValueError(f"{what} are on {x.device}, data on "
+                             f"{data.device}")
+    pairs = pairs.contiguous()
+    order = None if order is None else order.contiguous()
+    n, w = data.shape
+    out = torch.empty(t, dtype=torch.float32, device=data.device)
+    if t == 0:
+        return out
+    if n == 0 or w == 0:
+        raise ValueError("data must have at least one row and one word")
+    cap, inv_bits, scale = _eq2_constants(32 * w, num_hashes)
+    lib = _lib()
+    with torch.cuda.device(data.device):
+        rc = lib.pg_fused_gather_cardinality(
+            data.data_ptr(), n, w, pairs.data_ptr(), t,
+            None if order is None else order.data_ptr(), float(cap),
+            float(inv_bits), float(scale), out.data_ptr(),
+            torch.cuda.current_stream(data.device).cuda_stream)
+    _check(lib, rc, "fused_gather_cardinality")
+    _count("fused_gather_popcount", "gather/and2/card")
     return out
 
 
@@ -290,7 +369,7 @@ def tile_layout(data: torch.Tensor) -> Dict[str, int]:
 
 
 __all__ = ["FORM_LAUNCHES", "LAUNCHES", "SEGMENT_CHUNK_TILES",
-           "SEGMENT_MAX_COUNT",
+           "SEGMENT_MAX_COUNT", "fused_gather_cardinality",
            "fused_gather_popcount", "fused_rows_popcount",
            "fused_segment_popcount", "reset_launch_counts", "segment_layout",
            "tile_layout"]

@@ -13,7 +13,7 @@ from typing import Sequence
 
 import torch
 
-from ..core.estimators import _popcount_words
+from ..core.estimators import _popcount_words, bf_intersection_and_from_ones
 from .program import Program, and_program, eval_program
 
 
@@ -31,6 +31,15 @@ def fused_gather_popcount(data: torch.Tensor, tuples: torch.Tensor,
     """
     leaves = [gather_rows(data, tuples[:, s]) for s in program.slots]
     return _popcount_words(eval_program(program, leaves))
+
+
+def fused_gather_cardinality(data: torch.Tensor, pairs: torch.Tensor,
+                             num_hashes: int) -> torch.Tensor:
+    """|X∩Y|_AND (Eq. 2) of the two rows each pair names: float32[T]
+    (the kernel's visiting order does not change its output, so the plain
+    version takes none)."""
+    ones = fused_gather_popcount(data, pairs, and_program(2))
+    return bf_intersection_and_from_ones(ones, data.shape[1] * 32, num_hashes)
 
 
 def fused_segment_popcount(data: torch.Tensor, heads: torch.Tensor,

@@ -185,8 +185,8 @@ def test_spans_and_unported_paths(sessions):
 @pytest.mark.parametrize("kind, width", [("bf", "words"), ("kh", "k")])
 def test_session_records_build_and_edge_pass_spans(kind, width):
     """A traced CPU session records ``sketch.build`` (kind, n, width) and
-    ``engine.edge_cards`` with its chunk count, both fenced, and no span
-    around the plan."""
+    ``engine.edge_cards`` with its chunk count and ``fused`` (False on the
+    CPU), both fenced, and no span around the plan."""
     tg = TG.kronecker(8, 8, seed=1, device=CPU)
     TTR.enable()
     TTR.clear()
@@ -209,10 +209,83 @@ def test_session_records_build_and_edge_pass_spans(kind, width):
     assert build["args"] == {"kind": kind, "n": tg.n, "width": want}
     edges = next(e for e in events if e["name"] == "engine.edge_cards")
     assert sess.plan.edge_chunk == 100
-    assert edges["args"] == {"edges": tg.m, "chunks": -(-tg.m // 100)}
+    assert edges["args"] == {"edges": tg.m, "chunks": -(-tg.m // 100),
+                             "fused": False}
     for ev in (build, edges):
         assert 0 <= ev["enqueue_us"] <= ev["dur"]
     assert build["t1_ns"] <= edges["t0_ns"]
+
+
+_FUSED_CASES = [
+    # (sketch kind, plan.estimator, use_kernel, device) -> fused pass
+    ("bf", None, True, "cuda", True),
+    ("bf", "bf", True, "cuda", True),
+    ("bf", None, True, "cuda:1", True),
+    ("bf", "bf_l", True, "cuda", False),
+    ("bf", "bf_or", True, "cuda", False),
+    ("bf", None, False, "cuda", False),
+    ("bf", None, True, "cpu", False),
+    ("bf", None, False, "cpu", False),
+    ("kh", None, True, "cuda", False),
+    ("1h", None, True, "cuda", False),
+    ("kmv", None, True, "cuda", False),
+    (None, None, True, "cuda", False),
+]
+
+
+@pytest.mark.parametrize("kind, estimator, use_kernel, device, fused",
+                         _FUSED_CASES)
+def test_fused_edge_pass_dispatch(kind, estimator, use_kernel, device,
+                                  fused):
+    """Only a Bloom sketch under the AND estimator, with ``use_kernel``,
+    on a CUDA device takes the one-launch per-edge pass; every other
+    combination keeps the chunked ``map_edges`` (decided from the sketch,
+    the plan and the device alone: no GPU needed)."""
+    sketch = None if kind is None else TS.SketchSet(
+        data=torch.zeros((4, 2), dtype=torch.int32), kind=kind,
+        num_hashes=2, k=2, seed=0, n=4)
+    plan = TE.EnginePlan(use_kernel=use_kernel, estimator=estimator)
+    assert TE.fuses_edge_pass(sketch, plan, torch.device(device)) is fused
+
+
+@pytest.mark.parametrize("degree_order", [False, True])
+@pytest.mark.parametrize("estimator", [None, "bf_l"])
+def test_cpu_edge_pass_keeps_chunked_map(sessions, estimator, degree_order,
+                                         monkeypatch):
+    """On the CPU the per-edge pass runs the chunked ``map_edges`` (one
+    call, ⌈m / edge_chunk⌉ chunks) and gives, bit for bit, the plain chunk
+    function over the hub-ordered edges, unsorted; the kernel wrapper's
+    plain version gives the AND estimates of the same pairs bit for bit."""
+    from repro_torch.engine import engine as TEE
+    from repro_torch.kernels import fused_expr
+
+    _, tg, _, ts = sessions
+    plan = ts.plan.with_(estimator=estimator, degree_order=degree_order,
+                         edge_chunk=4096)
+    calls = []
+    real = TEE.map_edges
+
+    def spy(edges, fn, p):
+        calls.append(edges.shape[0])
+        return real(edges, fn, p)
+
+    monkeypatch.setattr(TEE, "map_edges", spy)
+    got = TE.edge_cardinalities(tg, ts.sketch, plan)
+    assert calls == [tg.m]
+    fn = TE.pair_cardinality_fn(tg, ts.sketch, plan)
+    if degree_order:
+        edges_s, inv = TE.order_edges_by_hub(tg, tg.edges)
+        want = torch.cat([fn(edges_s[s:s + 4096])
+                          for s in range(0, tg.m, 4096)])[inv]
+    else:
+        want = torch.cat([fn(tg.edges[s:s + 4096])
+                          for s in range(0, tg.m, 4096)])
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if estimator is None:
+        plain = fused_expr.fused_gather_cardinality(
+            ts.sketch.data, tg.edges, ts.sketch.num_hashes,
+            order=TE.hub_order(tg, tg.edges))
+        assert torch.equal(plain.view(torch.int32), got.view(torch.int32))
 
 
 @pytest.fixture(scope="module")

@@ -164,20 +164,140 @@ def test_out_of_range_ids_clamp_like_plain(cuda):
 
 
 def test_session_kernel_path_equals_plain_path(cuda):
-    """A CUDA session uses the kernels; its per-edge popcounts equal the
-    plain path's and TC agrees within rtol 1e-5 (float sums)."""
+    """A CUDA session uses the kernels (its per-edge pass is one launch of
+    the gather AND2 with Eq. 2 in its store); its per-edge popcounts equal
+    the plain path's and TC agrees within rtol 1e-5 (float sums)."""
     g = TG.kronecker(12, 16, seed=1, device=cuda)
     sess = TE.session(g, "bf", storage_budget=0.25, device=cuda)
     assert sess.plan.use_kernel and sess.plan.degree_order
     fused_expr.reset_launch_counts()
     tc = float(sess.triangle_count())
-    assert fused_expr.LAUNCHES["fused_gather_popcount"] >= 1
+    assert fused_expr.LAUNCHES["fused_gather_popcount"] == 1
+    assert fused_expr.FORM_LAUNCHES == {"gather/and2/card": 1}
     plain = sess.plan.with_(use_kernel=False)
     assert torch.equal(TE.tuple_cardinality_ones(sess.sketch, g.edges,
                                                  sess.plan),
                        TE.tuple_cardinality_ones(sess.sketch, g.edges, plain))
     tc_plain = float(TE.MiningSession(g, sess.sketch, plain).triangle_count())
     assert tc == pytest.approx(tc_plain, rel=1e-5)
+
+
+def _chunked_edge_pass(g, sketch, plan, edges):
+    """The per-edge pass as chunks of the gather AND2 and PyTorch's Eq. 2
+    (``map_edges`` over the hub-ordered edges, unsorted after)."""
+    fn = TE.pair_cardinality_fn(g, sketch, plan)
+    if plan.degree_order and edges.shape[0] > 1:
+        edges_s, inv = TE.order_edges_by_hub(g, edges)
+        return TE.map_edges(edges_s, fn, plan)[inv]
+    return TE.map_edges(edges, fn, plan)
+
+
+def _fused_pass(g, sketch, plan, edges):
+    """``edge_cardinalities`` of ``edges`` with the launches it made by
+    form (counts zeroed before)."""
+    fused_expr.reset_launch_counts()
+    got = TE.edge_cardinalities(g, sketch, plan, edges=edges)
+    return got, dict(fused_expr.FORM_LAUNCHES)
+
+
+@pytest.mark.parametrize("degree_order", [False, True])
+@pytest.mark.parametrize("words, b", [(32, 2), (30, 3)])
+def test_fused_edge_pass_bit_identical_to_chunked(cuda, words, b,
+                                                  degree_order):
+    """The one-launch Bloom per-edge pass equals the chunked pass
+    (edge_chunk 1,000: chunks of the gather AND2, then PyTorch's Eq. 2 ops)
+    bit for bit, over every edge, a ragged prefix, pairs that name row
+    n - 1, an empty list and a random edge subset as ``refresh`` passes it;
+    at W = 30, b = 3 neither B / b nor 1 / B is a power of two. Each pass
+    is one ``gather/and2/card`` launch and no ``gather/and2``."""
+    from repro_torch.core import sketches as TS
+
+    g = TG.kronecker(11, 16, seed=1, device=cuda)
+    sk = TS.build(g, "bf", words=words, num_hashes=b, seed=7)
+    plan = TE.plan_for(g, sk, degree_order=degree_order)
+    assert plan.use_kernel and TE.fuses_edge_pass(sk, plan, g.edges.device)
+    last = torch.tensor([[g.n - 1, 0], [3, g.n - 1], [g.n - 1, g.n - 1]],
+                        dtype=torch.int32, device=cuda)
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    subset = torch.randperm(g.m, generator=gen)[:g.m // 3].sort().values
+    cases = {"all": g.edges, "ragged": g.edges[:12_345],
+             "row n - 1": torch.cat([g.edges[:1_001], last]),
+             "empty": g.edges[:0], "subset": g.edges[subset.to(cuda)]}
+    for label, edges in cases.items():
+        got, forms = _fused_pass(g, sk, plan, edges)
+        want = _chunked_edge_pass(g, sk, plan.with_(edge_chunk=1000), edges)
+        assert got.shape == (edges.shape[0],) and got.dtype == torch.float32
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+            (label, int((got != want).sum()))
+        assert forms == ({"gather/and2/card": 1} if edges.shape[0] else {}), \
+            (label, forms)
+
+
+@pytest.mark.parametrize("degree_order", [False, True])
+def test_fused_edge_pass_through_refresh(cuda, degree_order):
+    """``MiningSession.refresh`` recomputes its invalidated edges with the
+    fused pass (one launch), and the refreshed cardinalities equal a full
+    chunked pass bit for bit."""
+    import numpy as np
+
+    g = TG.kronecker(11, 16, seed=1, device=cuda)
+    sess = TE.session(g, "bf", storage_budget=1.0, device=cuda,
+                      degree_order=degree_order)
+    full = _chunked_edge_pass(g, sess.sketch, sess.plan.with_(edge_chunk=1000),
+                              g.edges)
+    sess.edge_cardinalities()
+    carry = np.arange(g.m)
+    carry[np.random.default_rng(1).choice(g.m, 4_097, replace=False)] = -1
+    fused_expr.reset_launch_counts()
+    assert sess.refresh(g, carry_index=carry) == 4_097
+    assert fused_expr.FORM_LAUNCHES == {"gather/and2/card": 1}
+    assert torch.equal(sess.edge_cardinalities().view(torch.int32),
+                       full.view(torch.int32))
+
+
+@pytest.mark.parametrize("words, b", [(1, 1), (30, 3), (32, 2), (33, 4),
+                                      (64, 3)])
+def test_fused_cardinality_every_count(cuda, words, b):
+    """Every popcount 0..B of a row of W words, through the fused store,
+    in pair order and visited in reverse: bit-identical to PyTorch's
+    ``bf_intersection_and_from_ones`` of the gather kernel's counts on the
+    card."""
+    from repro_torch.core import estimators as est
+
+    bits = 32 * words
+    c = torch.arange(bits + 1, device=cuda)
+    # row 0 all ones, row c + 1 with its lowest c bits set
+    bit = torch.arange(bits, device=cuda)
+    on = (bit[None, :] < c[:, None]).to(torch.int64).view(bits + 1, words, 32)
+    rows = (on << torch.arange(32, device=cuda)).sum(-1)
+    rows = torch.cat([torch.full((1, words), -1, device=cuda),
+                      torch.where(rows >= 1 << 31, rows - (1 << 32), rows)])
+    data = rows.to(torch.int32).contiguous()
+    pairs = torch.stack([torch.zeros_like(c), c + 1], 1).to(torch.int32)
+    ones = fused_expr.fused_gather_popcount(data, pairs,
+                                            program.and_program(2))
+    assert torch.equal(ones, c.to(torch.int32))
+    want = est.bf_intersection_and_from_ones(ones, bits, b)
+    for order in (None, torch.arange(bits, -1, -1, device=cuda)):
+        got = fused_expr.fused_gather_cardinality(data, pairs, b, order=order)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+            (int((got != want).sum()), got[got != want][:4].tolist(),
+             want[got != want][:4].tolist())
+
+
+def test_fused_cardinality_rejects_bad_operands(cuda):
+    """Wrong dtypes, shapes or devices raise before any launch."""
+    data = torch.zeros((4, 2), dtype=torch.int32, device=cuda)
+    pairs = torch.zeros((3, 2), dtype=torch.int32, device=cuda)
+    for bad in (dict(pairs=pairs.long()), dict(pairs=pairs[:, :1]),
+                dict(pairs=pairs.cpu()),
+                dict(order=torch.arange(3, device=cuda, dtype=torch.int32)),
+                dict(order=torch.arange(4, device=cuda)),
+                dict(order=torch.arange(3))):
+        kw = {"pairs": pairs, "order": None, **bad}
+        with pytest.raises(ValueError):
+            fused_expr.fused_gather_cardinality(data, kw["pairs"], 2,
+                                                order=kw["order"])
 
 
 def test_kernel_rejects_cpu_operand_mix(cuda):
@@ -718,8 +838,9 @@ def test_exact_session_equals_brute_force(cuda):
 def test_stream_on_the_card_equals_the_cpu_stream(cuda):
     """A Bloom and a k-Hash stream on the card (inserts, deletions, a
     server flush) give the CPU stream's sketch rows, device CSR and
-    integer answers, with the AND2 gather (refresh, pair batch), the dense
-    AND2 (sweep) and the k-Hash gather launched. The Bloom stream's AND2
+    integer answers, with the AND2 gather (pair batch), its fused form
+    (``gather/and2/card``, the Bloom refresh), the dense AND2 (sweep) and
+    the k-Hash gather launched. The Bloom stream's AND2
     popcounts of its query pairs and live edges are equal on both, and its
     served pair answers and refreshed per-edge cardinalities agree within
     ROADMAP difference 2 (an ulp of ``log1p``: rtol 1e-6)."""
@@ -777,6 +898,7 @@ def test_stream_on_the_card_equals_the_cpu_stream(cuda):
         assert card[5].get(key, 0) > 0 and not cpu[5], (kind, card[5])
         if kind == "bf":
             assert card[5].get("rows/and2", 0) == 1
+            assert card[5].get("gather/and2/card", 0) > 0   # the refresh
 
 
 def test_from_edge_array_on_the_card_equals_the_cpu(cuda):
@@ -853,7 +975,7 @@ def test_link_prediction_on_the_card_equals_the_cpu(cuda):
     assert torch.equal(cpu[0], card[0]) and torch.equal(cpu[1], card[1])
     assert np.array_equal(cpu[2], card[2]) and torch.equal(cpu[5], card[5])
     assert cpu[3] == card[3]
-    assert not cpu[4] and card[4].get("gather/and2", 0) > 0 \
+    assert not cpu[4] and card[4].get("gather/and2/card", 0) > 0 \
         and card[4].get("khash_match_pairs/gather", 0) > 0
 
 
