@@ -6,7 +6,8 @@
 For each of ``--seeds``: the graph of that seed, loaded by the program,
 one warm-up job, then ``--jobs`` jobs through the timed path's own call
 (``jobs/<kind>.py``'s ``run``), each compared with the reference exactly
-as a run compares its checked jobs. For each of ``--control-seeds``: the
+as a run compares its checked jobs. A cell of k > 1 chips reads each seed
+on k new ranks, as a run does. For each of ``--control-seeds``: the
 control, the reference computed in bfloat16 in the program's place. One
 JSON line per reading, then the largest reading of the program and the
 smallest of the control per compared number.
@@ -22,24 +23,26 @@ if __package__ in (None, ""):
 
 import torch  # noqa: E402
 
-from graphbench import generator, harness  # noqa: E402
-from graphbench.reference import graph as ref_graph  # noqa: E402
+from graphbench import harness, ranks  # noqa: E402
 from graphbench.registry import Registry  # noqa: E402
 
 
 def program_readings(reg, workload, seed, jobs, device):
-    """The compared numbers of ``jobs`` jobs of the program on one seed."""
-    from repro_torch.core.graph import from_edge_array
+    """The compared numbers of ``jobs`` jobs of the program on one seed,
+    on the cell's ranks."""
+    return harness.over_ranks(_readings, reg, workload, device,
+                              (reg, workload, seed, jobs))
 
+
+def _readings(dev, reg, workload, seed, jobs):
+    group = ranks.Group(dev)
     cell = reg.cell(workload)
     config, mix = reg.config(cell["config"]), reg.mix(cell["traffic"])
     job = reg.job(mix["job"])
-    dev = torch.device(device)
-    n = 1 << config["scale"]
-    raw = generator.kronecker_edges(config, seed, dev)
-    raw_host = raw.cpu().numpy()
-    graph = from_edge_array(n, raw_host, device=dev)
-    ctx = harness.Context(config, mix, dev, graph)
+    ctx = harness.new_context(config, mix, dev, group)
+    harness.refuse_unsharded(job, mix, group.world)
+    share = harness.draw_share(ctx, seed)
+    ctx.graph = harness.load_graph(job, ctx, share)
     job.run(ctx, harness.job_seed(seed, -1), harness.Probe(False, dev))
     kept = {}
     for i in range(jobs):
@@ -48,13 +51,9 @@ def program_readings(reg, workload, seed, jobs, device):
         kept[i] = {k: v.cpu() if isinstance(v, torch.Tensor) else v
                    for k, v in job.keep(out).items()}
         del out
-    rg = ref_graph.build(n, raw)
-    del raw
-    found = [harness.graph_check(graph, rg)]
-    ctx.graph = None
-    del graph
-    found += harness.compare_jobs(job, ctx, rg, seed, kept)
-    return harness.checks.merge(found)
+    rg = harness.reference_graph(ctx, group, share)
+    return harness.merge_ranks(group, harness.check_rank(job, ctx, rg, seed,
+                                                         kept))
 
 
 def main(argv=None) -> int:
@@ -88,7 +87,9 @@ def main(argv=None) -> int:
                     worst[name] = max(worst.get(name, value), value)
                 else:
                     least[name] = min(least.get(name, value), value)
-            if args.device == "cuda":
+            # (the ranks of a cell over several cards have ended)
+            if args.device == "cuda" and int(
+                    reg.cell(args.workload)["chips"]) == 1:
                 torch.cuda.empty_cache()
     print(json.dumps({"program_largest": worst, "control_smallest": least}))
     return 0

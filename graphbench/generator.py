@@ -41,7 +41,12 @@ def kronecker_edges(config: dict, seed: int, device) -> torch.Tensor:
     a, b, c = config["a"], config["b"], config["c"]
     n = 1 << scale
     m = edge_factor * n
+    # the order of the edge list first, from a generator of its own seeded
+    # as the draw's would be for it: randperm(m) holds about six int64
+    # columns at once, so it runs before src and dst exist
     gen = torch.Generator(device=device)
+    gen.manual_seed(derive_seed(seed, "order"))
+    order = torch.randperm(m, generator=gen, device=device)
     gen.manual_seed(derive_seed(config["graph_seed"], "kronecker"))
     src = torch.zeros(m, dtype=torch.int64, device=device)
     dst = torch.zeros(m, dtype=torch.int64, device=device)
@@ -49,14 +54,25 @@ def kronecker_edges(config: dict, seed: int, device) -> torch.Tensor:
     # P(dst bit | src bit): B / (A + B) after a 0, D / (C + D) after a 1
     threshold = torch.tensor([a / ab, c / (1.0 - ab)], dtype=torch.float64,
                              device=device)
+    # each intermediate is freed at its last use: at scale 26 an int64
+    # column is 8 GiB and a draw of r 16 GiB
     for bit in range(scale):
         r = torch.rand((2, m), generator=gen, device=device,
                        dtype=torch.float64)
         src_bit = r[0] > ab
-        dst_bit = r[1] > threshold[src_bit.to(torch.int64)]
-        src |= src_bit.to(torch.int64) << bit
-        dst |= dst_bit.to(torch.int64) << bit
+        # r[1] > threshold[src_bit], without its float64 gather
+        dst_bit = torch.where(src_bit, r[1] > threshold[1],
+                              r[1] > threshold[0])
+        del r
+        # bit ``bit`` of src and dst is still 0, so the add is the OR
+        src.add_(src_bit, alpha=1 << bit)
+        dst.add_(dst_bit, alpha=1 << bit)
+        del src_bit, dst_bit
     perm = torch.randperm(n, generator=gen, device=device)
-    gen.manual_seed(derive_seed(seed, "order"))
-    order = torch.randperm(m, generator=gen, device=device)
-    return torch.stack([perm[src[order]], perm[dst[order]]], dim=1)
+    u = src[order]
+    del src
+    u = perm[u]
+    v = dst[order]
+    del dst, order
+    v = perm[v]
+    return torch.stack([u, v], dim=1)

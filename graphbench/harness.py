@@ -8,6 +8,19 @@ started inside it has finished. Each job opens a new mining session with a
 seed of its own (``job_seed``), so no job reuses another's sketch or
 per-edge pass. The job kind's module (``jobs/<kind>.py``) makes the calls
 into the program; this module owns the clock, the loop and the yardstick.
+
+A cell whose ``chips`` is k > 1 runs as k ranks, one a card
+(``ranks.py``). Every rank draws the raw edges and keeps its share of
+them, the rows [r·E/k, (r+1)·E/k) (its part of a partitioned input file);
+the job kind's ``load`` makes the rank's graph of it. Rank 0 owns the
+clock: before each job it tells every rank whether the job starts, and
+the window closes once the last job has finished on every rank. Each rank
+checks its own answers against the reference's rows of its vertex range
+(``reference.graph.build_range``), built from every rank's share of the
+raw edges (``range_edges``); rank 0 gathers the checks (worst over the
+ranks), the memory peaks (the largest), the traces and each rank's last
+look for JAX, and returns the result. A cell of one card starts no
+process and no group.
 """
 from __future__ import annotations
 
@@ -21,7 +34,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from . import checks, generator, profiling
+from . import checks, generator, profiling, ranks
 from .reference import graph as ref_graph
 from .registry import Registry
 
@@ -37,12 +50,16 @@ def job_seed(seed: int, index: int) -> int:
 @dataclasses.dataclass
 class Context:
     """What a job kind's functions are given: the deployment, the traffic,
-    the device and the program's graph."""
+    the device and the program's graph; and this rank's place among the
+    cell's ``world`` ranks with its ``vertex_range`` [lo, hi)."""
 
     config: dict
     mix: dict
     device: torch.device
     graph: object
+    rank: int = 0
+    world: int = 1
+    vertex_range: tuple = (0, 0)
 
     def sync(self) -> None:
         if self.device.type == "cuda":
@@ -89,7 +106,14 @@ class Probe:
 
 @dataclasses.dataclass
 class TraceData:
-    """What the per-layer metric readers (``metrics/<name>.py``) read."""
+    """What the per-layer metric readers (``metrics/<name>.py``) read.
+
+    ``n``, ``m`` and ``rows_named`` are the whole graph's, summed over the
+    ranks; ``csr_build_s`` is the largest over them. ``phase_ms``,
+    ``spans``, ``device`` and ``job_counters`` are rank 0's alone, and
+    every rank's trace is in ``rank_devices`` and ``rank_spans``. Over
+    ``world`` > 1 ranks a reader that counts work from the whole graph
+    divides it by rank 0's device time, so it reads nothing there."""
 
     config: dict
     n: int
@@ -100,6 +124,11 @@ class TraceData:
     spans: List[dict]
     device: Optional[profiling.DeviceTrace]
     job_counters: List[dict]    # of the profiled jobs
+    world: int = 1
+    # every rank's, in rank order; ``device`` and ``spans`` are rank 0's
+    rank_devices: List[Optional[profiling.DeviceTrace]] = \
+        dataclasses.field(default_factory=list)
+    rank_spans: List[List[dict]] = dataclasses.field(default_factory=list)
 
 
 def _quantile(values: List[float], q: int) -> float:
@@ -107,6 +136,21 @@ def _quantile(values: List[float], q: int) -> float:
     if len(values) == 1:
         return values[0]
     return statistics.quantiles(values, n=100, method="inclusive")[q - 1]
+
+
+def vertex_range(n: int, world: int, rank: int) -> tuple:
+    """Vertices [lo, hi) of rank ``rank``: blocks of ceil(n / world), the
+    last one cut at n (the rule of the program's ``launch/mine.py``)."""
+    block = -(-n // world)
+    lo = min(n, rank * block)
+    return lo, min(n, lo + block)
+
+
+def edge_share(raw: torch.Tensor, world: int, rank: int) -> torch.Tensor:
+    """Rows [r·E/k, (r+1)·E/k) of the raw edges: rank r's part of them,
+    the shares in rank order making up the whole."""
+    e = raw.shape[0]
+    return raw[rank * e // world:(rank + 1) * e // world]
 
 
 def loaded_forbidden() -> List[str]:
@@ -129,43 +173,62 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
              registry: Optional[Registry] = None, device: str = "cuda",
              t0: Optional[float] = None, log=None) -> dict:
     """Run ``workload`` once and return the result line's fields, with the
-    compared numbers under ``checks``; the caller decides the platform."""
-    from repro_torch.core.graph import from_edge_array
+    compared numbers under ``checks``; the caller decides the platform.
+    A cell of k > 1 chips runs on k new ranks of ``device``'s type, which
+    log to standard error (``log`` serves a cell of one card)."""
+    t0 = time.perf_counter() if t0 is None else t0
+    reg = registry or Registry.load()
+    if int(reg.cell(workload)["chips"]) > 1:
+        log = None      # the ranks log to standard error
+    return over_ranks(_cell, reg, workload, device,
+                      (workload, seed, seconds, trace, reg, t0, log))
+
+
+def over_ranks(fn, reg: Registry, workload: str, device: str, args: tuple):
+    """``fn(device, *args)`` on the cell's ranks: in this process for a
+    cell of one card, else on its k new ranks; rank 0's return value."""
+    world = int(reg.cell(workload)["chips"])
+    if world == 1:
+        return fn(torch.device(device), *args)
+    return ranks.launch(fn, world, args, device=device)
+
+
+def _cell(dev: torch.device, workload: str, seed: int, seconds: float,
+          trace: bool, reg: Registry, t0: float, log) -> Optional[dict]:
+    """One rank's part of a run (the whole run on one card): the result
+    on rank 0, None on the others."""
     from repro_torch.obs import trace as port_trace
 
-    t0 = time.perf_counter() if t0 is None else t0
-    log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
-    reg = registry or Registry.load()
+    group = ranks.Group(dev)
+    log = log or _stderr_log(group)
     cell = reg.cell(workload)
     config, mix = reg.config(cell["config"]), reg.mix(cell["traffic"])
     job = reg.job(mix["job"])
-    dev = torch.device(device)
     cuda = dev.type == "cuda"
+    ctx = new_context(config, mix, dev, group)
+    refuse_unsharded(job, mix, group.world)
     # the cell's per-layer readers load now, so that the check for JAX
     # once the window has closed covers them too
     readers = {e["name"]: reg.metric(e["name"])
                for e in reg.metrics_of("per_layer", workload)}
     log(f"{time.perf_counter() - t0:.3f} s: imports done")
 
-    # inputs: the raw edges, drawn on the device from the seed
-    n = 1 << config["scale"]
-    raw = generator.kronecker_edges(config, seed, dev)
-    raw_host = raw.cpu().numpy()
-    del raw
+    # inputs: the raw edges, drawn on the device from the seed; this
+    # rank's share of them on the host
+    share = draw_share(ctx, seed)
     log(f"{time.perf_counter() - t0:.3f} s: raw edges on the host")
     # set-up: the program's load path, then one warm-up job
     t = time.perf_counter()
-    graph = from_edge_array(n, raw_host, device=dev)
-    ctx = Context(config, mix, dev, graph)
+    ctx.graph = load_graph(job, ctx, share)
     ctx.sync()
     csr_build_s = time.perf_counter() - t
     t = time.perf_counter()
     job.run(ctx, job_seed(seed, -1), Probe(False, dev))
     warm_s = time.perf_counter() - t
+    group.barrier()
     setup_s = time.perf_counter() - t0
-    log(f"set-up {setup_s:.3f} s (n {graph.n}, m {graph.m}, "
-        f"d_max {graph.d_max}, csr build {csr_build_s:.3f} s, warm-up job "
-        f"{warm_s:.3f} s)")
+    log(f"set-up {setup_s:.3f} s ({_describe(ctx.graph)}, csr build "
+        f"{csr_build_s:.3f} s, warm-up job {warm_s:.3f} s)")
 
     # the measured window
     # the checked jobs come after the traced ones, whose window the copy
@@ -187,7 +250,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     start = time.perf_counter()
     paused = 0.0    # seconds of the benchmark's own work inside the loop
     i = 0
-    while time.perf_counter() - start - paused < seconds:
+    # rank 0's clock decides, for every rank, whether job i starts
+    while group.agree(time.perf_counter() - start - paused < seconds):
         if trace and i == first_traced:
             t = time.perf_counter()
             ctx.sync()
@@ -215,6 +279,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
                 prof.stop()
         paused += time.perf_counter() - t
         i += 1
+    # the window closes once the last job has finished on every rank
+    group.barrier()
     end = time.perf_counter()
     if prof is not None and prof_t[1] == 0.0:
         prof_t[1] = end
@@ -241,17 +307,26 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     del prof
     log(f"trace read in {time.perf_counter() - t:.3f} s")
     t = time.perf_counter()
-    rg = ref_graph.build(n, torch.from_numpy(raw_host).to(dev))
-    found = [graph_check(graph, rg)]
-    ctx.graph = None
-    del graph
+    rg = reference_graph(ctx, group, share)
     checked = sorted(kept)
-    found += compare_jobs(job, ctx, rg, seed, kept)
-    if not checked:
-        found.append(checks.Check("checked_jobs", 0.0, -1.0))
-    found = checks.merge(found)
+    found = check_rank(job, ctx, rg, seed, kept)
     log(f"reference check {time.perf_counter() - t:.3f} s over jobs "
         f"{checked}")
+    traces = group.gather((device_trace, port_trace.events(),
+                           int((rg.deg > 0).sum()))) if trace else None
+    # each rank looks for JAX again once its part of the run is done
+    reports = group.gather({
+        "attempted": jobs, "m": rg.m, "csr_build_s": csr_build_s,
+        "memory_peak_bytes": int(max(setup_peak, window_peak)),
+        "window_peak": window_peak, "checks": found,
+        "forbidden": loaded_forbidden()})
+    if group.rank != 0:
+        return None
+    attempted = [r["attempted"] for r in reports]
+    if len(set(attempted)) != 1:
+        raise RuntimeError(f"the ranks ran different jobs: {attempted}")
+    m = sum(r["m"] for r in reports)
+    found = checks.merge(c for r in reports for c in r["checks"])
 
     result = {
         "correct": all(c.ok for c in found),
@@ -261,16 +336,20 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
         "device": {"platform": "gpu" if cuda else "cpu",
                    "kind": torch.cuda.get_device_name(dev) if cuda
                    else "cpu",
-                   "count": int(cell["chips"]),
-                   "memory_peak_bytes": int(max(setup_peak, window_peak))},
+                   "count": group.world,
+                   "memory_peak_bytes": max(r["memory_peak_bytes"]
+                                            for r in reports)},
     }
     if trace:
         data = TraceData(
-            config=config, n=rg.n, m=rg.m,
-            rows_named=int((rg.deg > 0).sum()), csr_build_s=csr_build_s,
-            phase_ms=probe.phase_ms(), spans=port_trace.events(),
-            device=device_trace,
-            job_counters=counters[first_traced:first_traced + prof_jobs])
+            config=config, n=rg.n, m=m,
+            rows_named=sum(x[2] for x in traces),
+            csr_build_s=max(r["csr_build_s"] for r in reports),
+            phase_ms=probe.phase_ms(), spans=traces[0][1],
+            device=traces[0][0],
+            job_counters=counters[first_traced:first_traced + prof_jobs],
+            world=group.world, rank_devices=[x[0] for x in traces],
+            rank_spans=[x[1] for x in traces])
         for entry in reg.metrics_of("per_layer", workload):
             value = readers[entry["name"]].read(data)
             if value is not None:
@@ -283,9 +362,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
                                    "idle_gaps": data.device.top_gaps()}
     else:
         values = {
-            "mined_edges_per_s": rg.m * jobs / window_s,
+            "mined_edges_per_s": m * jobs / window_s,
             "job_s_p95": _quantile(durations, 95),
-            "peak_mem_gib": window_peak / 2 ** 30,
+            "peak_mem_gib": max(r["window_peak"] for r in reports) / 2 ** 30,
             "setup_s": setup_s,
         }
         # a name "<quantity>.<part>" is the quantity, with a bound of its
@@ -294,9 +373,115 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
             result["metrics"][entry["name"]] = {
                 "value": float(values[entry["name"].split(".")[0]]),
                 "unit": entry["unit"]}
+    if group.world > 1:
+        result["ranks"] = {"attempted": attempted,
+                           "memory_peak_bytes": [r["memory_peak_bytes"]
+                                                 for r in reports]}
     result["checks"] = {c.name: {"value": c.value, "limit": c.limit}
                         for c in found}
+    # and rank 0 once more, after the readers
+    bad = sorted(set(loaded_forbidden()).union(
+        *(r["forbidden"] for r in reports)))
+    if bad:
+        raise ForbiddenModules(bad)
     return result
+
+
+def _stderr_log(group: ranks.Group):
+    prefix = f"rank {group.rank}: " if group.world > 1 else ""
+    return lambda msg: print(prefix + msg, file=sys.stderr, flush=True)
+
+
+def _describe(graph) -> str:
+    return ", ".join(f"{k} {getattr(graph, k)}" for k in ("n", "m", "d_max")
+                     if hasattr(graph, k))
+
+
+def new_context(config: dict, mix: dict, dev: torch.device,
+                group: ranks.Group) -> Context:
+    """The context of this rank, with no graph yet."""
+    n = 1 << config["scale"]
+    return Context(config, mix, dev, None, group.rank, group.world,
+                   vertex_range(n, group.world, group.rank))
+
+
+def refuse_unsharded(job, mix: dict, world: int) -> None:
+    """A cell over several cards needs a job kind that loads a rank's
+    graph (``load``) and checks it (``check_graph``)."""
+    missing = [f for f in ("load", "check_graph") if not hasattr(job, f)]
+    if world > 1 and missing:
+        raise ValueError(f"job kind {mix['job']!r} has no {missing}: a "
+                         f"cell of {world} chips needs both")
+
+
+def draw_share(ctx: Context, seed: int):
+    """This rank's share of the raw edges of ``seed``, drawn on the
+    device and held on the host (numpy int64[E/k, 2])."""
+    raw = generator.kronecker_edges(ctx.config, seed, ctx.device)
+    return edge_share(raw, ctx.world, ctx.rank).cpu().numpy()
+
+
+def load_graph(job, ctx: Context, share):
+    """The program's graph of this rank: the job kind's ``load``, else
+    ``from_edge_array`` of the whole graph."""
+    if hasattr(job, "load"):
+        return job.load(ctx, share)
+    from repro_torch.core.graph import from_edge_array
+
+    return from_edge_array(1 << ctx.config["scale"], share,
+                           device=ctx.device)
+
+
+def reference_graph(ctx: Context, group: ranks.Group, share
+                    ) -> ref_graph.RefGraph:
+    """The reference's graph: on one card, of the raw edges held; on k,
+    of this rank's vertex range, from the raw edges that touch it."""
+    n = 1 << ctx.config["scale"]
+    if ctx.world == 1:
+        return ref_graph.build(n, torch.from_numpy(share).to(ctx.device))
+    return ref_graph.build_range(n, range_edges(ctx, group, share),
+                                 *ctx.vertex_range)
+
+
+def range_edges(ctx: Context, group: ranks.Group, share) -> torch.Tensor:
+    """The raw edges that touch this rank's vertex range, on its device:
+    each rank's share of them (held on the host since the draw) sent in
+    turn to every rank, which keeps what touches its range. No rank holds
+    all the raw edges, and none draws them again."""
+    parts = []
+    for src in range(group.world):
+        rows = group.broadcast_rows(
+            torch.from_numpy(share).to(ctx.device) if src == group.rank
+            else None, src)
+        parts.append(ref_graph.touching(rows, *ctx.vertex_range))
+        del rows
+    return torch.cat(parts)
+
+
+def check_rank(job, ctx: Context, rg, seed: int, kept: Dict[int, dict]
+               ) -> List[checks.Check]:
+    """This rank's compared numbers: its graph (the job kind's
+    ``check_graph``, else ``graph_check``), then, with the program's graph
+    freed, the kept answers (``kept`` is emptied)."""
+    if hasattr(job, "check_graph"):
+        found = list(job.check_graph(ctx, ctx.graph, rg))
+    else:
+        found = [graph_check(ctx.graph, rg)]
+    ctx.graph = None
+    if not kept:
+        found.append(checks.Check("checked_jobs", 0.0, -1.0))
+    found += compare_jobs(job, ctx, rg, seed, kept)
+    return checks.merge(found)
+
+
+def merge_ranks(group: ranks.Group, found: List[checks.Check]
+                ) -> Optional[List[checks.Check]]:
+    """Every rank's checks, worst over the ranks, on rank 0; None on the
+    others."""
+    parts = group.gather(found)
+    if group.rank != 0:
+        return None
+    return checks.merge(c for part in parts for c in part)
 
 
 class ForbiddenModules(RuntimeError):
@@ -331,20 +516,28 @@ def compare_jobs(job, ctx: Context, rg, seed: int, kept: Dict[int, dict]
 
 
 def run_control(workload: str, seed: int, *, registry: Optional[Registry]
-                = None, device: str = "cuda", jobs: int = 1) -> List[
-                    checks.Check]:
+                = None, device: str = "cuda", jobs: int = 1
+                ) -> List[checks.Check]:
     """The control: the reference computed in bfloat16, put in the
     program's place for the first ``jobs`` job seeds of a run and judged
-    by the same comparison. A sound yardstick finds it not correct."""
+    by the same comparison, on the cell's ranks. A sound yardstick finds
+    it not correct."""
     reg = registry or Registry.load()
+    return over_ranks(_control, reg, workload, device,
+                      (workload, seed, reg, jobs))
+
+
+def _control(dev: torch.device, workload: str, seed: int, reg: Registry,
+             jobs: int) -> Optional[List[checks.Check]]:
+    group = ranks.Group(dev)
     cell = reg.cell(workload)
     config, mix = reg.config(cell["config"]), reg.mix(cell["traffic"])
     job = reg.job(mix["job"])
-    dev = torch.device(device)
+    ctx = new_context(config, mix, dev, group)
     n = 1 << config["scale"]
     raw = generator.kronecker_edges(config, seed, dev)
-    rg = ref_graph.build(n, raw)
-    ctx = Context(config, mix, dev, None)
+    rg = (ref_graph.build(n, raw) if group.world == 1
+          else ref_graph.build_range(n, raw, *ctx.vertex_range))
     del raw
     found = []
     for i in range(jobs):
@@ -352,5 +545,4 @@ def run_control(workload: str, seed: int, *, registry: Optional[Registry]
         got = job.reference(ctx, rg, s, torch.bfloat16)
         found += job.compare(got, job.reference(ctx, rg, s, torch.float64),
                              rg)
-    return checks.merge(found)
-
+    return merge_ranks(group, checks.merge(found))

@@ -26,7 +26,9 @@ def _is_kernel(op):
 
 
 def read(t):
-    if t.device is None or not t.device.jobs:
+    # over several ranks the work counted is the whole graph's and the
+    # time rank 0's: nothing to read until the work is counted a rank
+    if t.world > 1 or t.device is None or not t.device.jobs:
         return None
     kernel_s = t.device.seconds_where(_is_kernel) / t.device.jobs
     return peaks.roofline_percent(work(t), kernel_s)

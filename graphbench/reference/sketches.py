@@ -42,15 +42,17 @@ def bloom_positions(keys: torch.Tensor, num_hashes: int, total_bits: int,
 
 def bloom(g: RefGraph, words: int, num_hashes: int, seed: int
           ) -> torch.Tensor:
-    """int32[n, words]: bit ``h_i(w) mod 32·words`` set in row v for every
-    neighbour w of v and hash function i (bit j of word q is element
-    32q + j), as int32 bit patterns of uint32 words."""
+    """int32[rows, words]: bit ``h_i(w) mod 32·words`` set in row v for
+    every neighbour w of v and hash function i (bit j of word q is element
+    32q + j), as int32 bit patterns of uint32 words; the rows ``g`` holds
+    (every vertex's, or a range graph's)."""
     total_bits = 32 * words
+    rows = g.deg.numel()
     pos = bloom_positions(g.indices, num_hashes, total_bits, seed)
-    bit = torch.unique(g.rows()[:, None] * total_bits + pos)
-    acc = torch.zeros(g.n * words, dtype=torch.int64, device=bit.device)
+    bit = torch.unique((g.rows() - g.lo)[:, None] * total_bits + pos)
+    acc = torch.zeros(rows * words, dtype=torch.int64, device=bit.device)
     acc.index_add_(0, bit >> 5, torch.ones_like(bit) << (bit & 31))
-    return to_int32_bits(acc).view(g.n, words)
+    return to_int32_bits(acc).view(rows, words)
 
 
 def khash(g: RefGraph, k: int, seed: int) -> torch.Tensor:

@@ -5,8 +5,10 @@
 
 Prints the compared numbers beside their limits as the last lines of
 standard error and one JSON object as the last line of standard output.
-Exits non-zero, printing no result, when the cell's GPUs are missing or
-the run loaded JAX or the JAX package.
+A cell of k > 1 chips runs as k ranks, one a GPU (``ranks.py``), and this
+process prints rank 0's result once every rank has ended. Exits non-zero,
+printing no result, when the cell's GPUs are missing, the run loaded JAX
+or the JAX package, or a rank failed or outlived the run's deadline.
 """
 import time
 
@@ -45,7 +47,7 @@ def main(argv=None) -> int:
         os.environ[var] = str(ROOT / path)
 
     import torch
-    from graphbench import harness
+    from graphbench import harness, ranks
 
     reg = Registry.load()
     chips = int(reg.cell(args.workload)["chips"])
@@ -60,6 +62,9 @@ def main(argv=None) -> int:
     except harness.ForbiddenModules as err:
         print(f"refused: {err}", file=sys.stderr)
         return 3
+    except ranks.RankFailure as err:
+        print(f"failed: {err}", file=sys.stderr)
+        return 4
     # again just before the result: whatever loaded after the window
     bad = harness.loaded_forbidden()
     if bad:

@@ -79,3 +79,39 @@ def test_same_seed_same_edges_and_seeds_differ():
                                                     "cpu"))
     assert not torch.equal(a, generator.kronecker_edges(CONFIG, 6, "cpu"))
     assert int(a.min()) >= 0 and int(a.max()) < 1 << SCALE
+
+
+def _draw_before(config: dict, seed: int, device) -> torch.Tensor:
+    """``kronecker_edges`` as it was before its intermediates were freed
+    at their last use (a frozen copy)."""
+    scale, edge_factor = config["scale"], config["edge_factor"]
+    a, b, c = config["a"], config["b"], config["c"]
+    n = 1 << scale
+    m = edge_factor * n
+    gen = torch.Generator(device=device)
+    gen.manual_seed(generator.derive_seed(config["graph_seed"], "kronecker"))
+    src = torch.zeros(m, dtype=torch.int64, device=device)
+    dst = torch.zeros(m, dtype=torch.int64, device=device)
+    ab = a + b
+    threshold = torch.tensor([a / ab, c / (1.0 - ab)], dtype=torch.float64,
+                             device=device)
+    for bit in range(scale):
+        r = torch.rand((2, m), generator=gen, device=device,
+                       dtype=torch.float64)
+        src_bit = r[0] > ab
+        dst_bit = r[1] > threshold[src_bit.to(torch.int64)]
+        src |= src_bit.to(torch.int64) << bit
+        dst |= dst_bit.to(torch.int64) << bit
+    perm = torch.randperm(n, generator=gen, device=device)
+    gen.manual_seed(generator.derive_seed(seed, "order"))
+    order = torch.randperm(m, generator=gen, device=device)
+    return torch.stack([perm[src[order]], perm[dst[order]]], dim=1)
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 33 + 5])
+def test_the_draw_is_the_one_before_its_frees(seed):
+    cfg = dict(CONFIG, scale=10, graph_seed=seed % 1000 + 1)
+    got = generator.kronecker_edges(cfg, seed, "cpu")
+    want = _draw_before(cfg, seed, "cpu")
+    assert got.is_contiguous() and got.dtype == want.dtype
+    assert torch.equal(got, want)

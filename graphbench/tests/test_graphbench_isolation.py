@@ -4,7 +4,7 @@ import json
 import subprocess
 import sys
 
-from conftest import ROOT
+from smallbench import ROOT
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}
 
@@ -13,7 +13,7 @@ import json, sys
 sys.path.insert(0, {root!r})
 import graphbench
 from graphbench import calibrate, checks, generator, harness, peaks, \\
-    profiling, registry, run
+    profiling, ranks, registry, run
 from graphbench.reference import counts, graph, hashing, mining, sketches
 reg = registry.Registry.load()
 for cell in reg.bench["workloads"]:

@@ -4,7 +4,7 @@ exactly, the floating-point answers to float32 rounding."""
 import pytest
 import torch
 
-from conftest import small_registry
+from smallbench import small_registry
 from graphbench import generator, harness
 from graphbench.reference import counts, graph as ref_graph, sketches
 

@@ -6,7 +6,7 @@ import textwrap
 
 import pytest
 
-from conftest import ROOT, small_registry
+from smallbench import ROOT, small_registry
 from graphbench import harness
 from graphbench.registry import HERE, Registry
 

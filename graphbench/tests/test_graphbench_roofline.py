@@ -65,6 +65,19 @@ def test_popcounts_bound_at_a_quarter_of_the_integer_rate():
     assert peaks.roofline_percent((0, 0, 0), 0.0) is None
 
 
+@pytest.mark.parametrize("name,kernel", [
+    ("and2_gather_roofline", "tile_popcount_kernel<GatherSrc, 2, 4>"),
+    ("khash_gather_roofline", "khash_kernel<GatherSrc, 8, 4>"),
+    ("and3_segment_roofline", "segment_popcount_kernel<3, 4, long>")])
+def test_over_ranks_a_roofline_reads_nothing(name, kernel):
+    """Its work is the whole graph's and its time rank 0's."""
+    mod = Registry.load().metric(name)
+    t = _trace([_op(kernel, 2e-6)], [{"triangles": 1000}])
+    assert mod.read(t) is not None
+    t.world = 2
+    assert mod.read(t) is None
+
+
 def test_nothing_to_read_gives_nothing():
     reg = Registry.load()
     t = _trace([_op("some_other_kernel", 1e-3)], [{"triangles": 5}])

@@ -3,7 +3,7 @@ hand on spans and operations stamped on one clock, and the scale-8 CPU
 cells traced."""
 import pytest
 
-from conftest import small_registry
+from smallbench import small_registry
 from graphbench import harness, profiling
 from graphbench.registry import Registry
 

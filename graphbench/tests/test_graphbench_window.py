@@ -5,7 +5,7 @@ import textwrap
 
 import pytest
 
-from conftest import small_registry
+from smallbench import small_registry
 from graphbench import generator, harness
 from graphbench.reference import graph as ref_graph
 
